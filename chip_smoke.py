@@ -1,0 +1,675 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py [--out FILE.json]
+
+Skyplane's main path is plan, then move. This script builds the port's
+CUDA kernels from ``src/repro_torch/kernels/waterfill/csrc/waterfill.cu``,
+holds each against its plain PyTorch version, then plans the Fig. 6 route
+on the card (batched torch IPM) and moves the plan's chunks through the
+device-resident sim, first at 10,240 chunks of 64 MB with scripted faults
+(held field for field against the same run on the CPU), then at 100,000
+chunks. Each phase prints one line; the line before the last lists every
+kernel with its launches on the main path, its error against its plain
+version, its time and its bound; the last line is the device summary.
+Any failed check raises, and the script then exits non-zero without the
+summary. It exits non-zero at once where there is no CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC, DST = "aws:us-east-1", "aws:ap-southeast-2"  # Fig. 6 panel 1 route
+FIG6_VOLUME_GB = 640.0  # 10,240 chunks of 64 MB
+BIG_SRC, BIG_DST = "aws:us-west-2", "aws:eu-central-1"
+BIG_CHUNKS = 100_000
+CHUNK_MB = 64.0
+# H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and the vector (non-tensor)
+# peaks the kernels' float operations run at
+HBM_BYTES_S = 3.35e12
+PEAK_OPS = {"f64": 34e12, "f32": 67e12}
+WF_SOURCE = "src/repro_torch/kernels/waterfill/csrc/waterfill.cu"
+WF_TPU = "src/repro/kernels/waterfill/waterfill.py:41"
+SEGSUM_REPLACES = "src/repro/transfer/flowsim_jax.py:325"
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + json.dumps(fields, default=float), flush=True)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean time per call of ``fn`` over ``reps`` back-to-back calls, from
+    CUDA events: device time plus any gap the host leaves between calls."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler; returns (its result, the device
+    events as (name, start_us, end_us))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, dev
+
+
+SPIN_CYCLES = 50_000_000  # ~25 ms of spinning at H100 clocks
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` (which must not synchronise), with
+    the host's launch gaps hidden: a spin kernel holds the card while the
+    host enqueues every call, so the CUDA events bracket only the calls'
+    device work. Raises if the spin ended before the host finished."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b.synchronize()
+    s0 = torch.cuda.Event(enable_timing=True)
+    s1 = torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    s1.record()
+    s1.synchronize()
+    check(host_ms < s0.elapsed_time(s1), "the spin ended before the host "
+          "had enqueued every call: the timing would include host gaps")
+    return a.elapsed_time(b) / reps
+
+
+# ------------------------------------------------------------- kernel inputs
+def wf_inputs(su, dev, dtype, *, seed=None, edges=True):
+    """Water-filling operands at a materialized scenario's shapes: every
+    conn live (``seed`` None) or a seeded live subset with junk caps and
+    indices in the dead lanes."""
+    nc = su.conn_job.shape[0]
+    ncp = max(8, -(-nc // 8) * 8)
+    nv, ne = su.vm_eg_cap.shape[0], len(su.edges_used)
+    caps = np.zeros(ncp)
+    caps[:nc] = su.conn_rate
+    src = np.zeros(ncp, dtype=np.int64)
+    dst = np.zeros(ncp, dtype=np.int64)
+    eid = np.zeros(ncp, dtype=np.int64)
+    src[:nc], dst[:nc], eid[:nc] = su.conn_src, su.conn_dst, su.conn_edge
+    active = np.arange(ncp) < nc
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        active = (rng.uniform(size=ncp) < 0.7) & (np.arange(ncp) < nc)
+        dead = ~active
+        caps[dead] = 123.0
+        src[dead] = rng.integers(0, nv, dead.sum())
+        dst[dead] = rng.integers(0, nv, dead.sum())
+        eid[dead] = rng.integers(0, ne, dead.sum())
+    ed = np.array([su.top.tput[a, b] * 2.0 for a, b in su.edges_used])
+
+    def f(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    def i(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    return dict(
+        caps=f(caps), src=i(src), dst=i(dst), eg_cap=f(su.vm_eg_cap),
+        in_cap=f(su.vm_in_cap), eid=i(eid) if edges else None,
+        ed_cap=f(ed) if edges else None,
+        active=torch.as_tensor(active, device=dev),
+    )
+
+
+def to_cpu(args: dict) -> dict:
+    return {k: None if v is None else v.cpu() for k, v in args.items()}
+
+
+def wf_bound(args: dict, rounds: int, precision: str) -> tuple[float, str]:
+    """Least time for one solve: each operand read once (the conn-to-VM
+    and conn-to-edge maps once, as src/dst/eid), the rates written once;
+    per live round ~12 float operations per lane and 2 per VM/edge
+    budget."""
+    nc, nv = args["caps"].shape[0], args["eg_cap"].shape[0]
+    ne = 0 if args["ed_cap"] is None else args["ed_cap"].shape[0]
+    n_maps = 2 if args["eid"] is None else 3
+    e = 8 if precision == "f64" else 4
+    nbytes = (
+        nc * e + n_maps * nc * 4 + nc + 2 * nv * e + ne * e  # operands
+        + nc * e  # rates out
+    )
+    ops = rounds * (12 * nc + 2 * (2 * nv + ne))
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS[precision]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def live_rounds(args: dict, precision: str) -> int:
+    """Rounds of one solve in which a lane is still unfixed (the bound's
+    operation count): the water-filling rounds redone in numpy at the
+    kernel's precision, capped at the kernel's round bound."""
+    dt, none, eps = ((np.float64, np.inf, 1e-12) if precision == "f64"
+                     else (np.float32, np.float32(1e30), np.float32(1e-6)))
+    a = {k: v.cpu().numpy() for k, v in args.items() if v is not None}
+    caps, un = a["caps"].astype(dt), a["active"].astype(bool)
+    maps = [(a["src"], a["eg_cap"]), (a["dst"], a["in_cap"])]
+    if "ed_cap" in a:
+        maps.append((a["eid"], a["ed_cap"]))
+    bud = [b.astype(dt) for _, b in maps]
+    ne = a["ed_cap"].shape[0] if "ed_cap" in a else 0
+    bound = 2 * a["eg_cap"].shape[0] + ne + 4
+    k = 0
+    while k < bound and un.any():
+        share = np.full(caps.shape, none, dt)
+        for (idx, _), b in zip(maps, bud):
+            cnt = np.bincount(idx[un], minlength=b.shape[0]).astype(dt)
+            seg = np.where(cnt > 0, b / np.maximum(cnt, 1), none).astype(dt)
+            share = np.minimum(share, seg[idx])
+        hit = un & (caps <= share + eps)
+        cap_bound = hit.any()
+        new = hit if cap_bound else un & (share <= share[un].min() + eps)
+        rate = caps if cap_bound else share
+        for j, (idx, _) in enumerate(maps):
+            used = np.bincount(idx[new], weights=rate[new],
+                               minlength=bud[j].shape[0])
+            bud[j] = np.maximum(bud[j] - used.astype(dt), 0).astype(dt)
+        un &= ~new
+        k += 1
+    return k
+
+
+# ------------------------------------------------------------------- phases
+def phase_build():
+    from repro_torch.kernels.waterfill import build
+
+    t0 = time.perf_counter()
+    build.load()
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    print(card, flush=True)
+    regs = [ln.strip() for ln in build.build_info()["ptxas"].splitlines()
+            if "registers" in ln]
+    say("build", seconds=round(seconds, 3), card=card, ptxas=regs)
+    return card
+
+
+def phase_waterfill(shapes, dev, errs):
+    from repro_torch.kernels.waterfill import ops, ref
+
+    n = 0
+    for label, su in shapes.items():
+        for seed in range(4):
+            for edges in (False, True):
+                for precision, dtype in (("f64", torch.float64),
+                                         ("f32", torch.float32)):
+                    args = wf_inputs(su, dev, dtype, seed=seed, edges=edges)
+                    got = ops.waterfill_rates(**args, precision=precision)
+                    want = ops.waterfill_rates(**to_cpu(args),
+                                               precision=precision)
+                    got = got.cpu()
+                    err = float((got - want).abs().max())
+                    errs[f"waterfill_{precision}"] = max(
+                        errs.get(f"waterfill_{precision}", 0.0), err
+                    )
+                    if precision == "f64":
+                        check(torch.equal(got, want),
+                              f"f64 kernel != plain ({label}, seed {seed})")
+                    else:
+                        torch.testing.assert_close(got, want, rtol=1e-5,
+                                                   atol=1e-5)
+                    n += 1
+        # the ordered segment sum at the sim's (job, edge) map
+        je = torch.as_tensor(su.conn_job * len(su.edges_used)
+                             + su.conn_edge, device=dev)
+        nseg = len(su.arrivals) * len(su.edges_used)
+        w = torch.as_tensor(np.random.default_rng(9).uniform(
+            0, 3, je.shape[0]), device=dev)
+        got = ops.segment_sum_ordered(w, je, nseg).cpu()
+        want = ref.segment_sum_ordered(w.cpu(), je.cpu(), nseg)
+        check(torch.equal(got, want), f"segment sum != plain ({label})")
+        errs["segsum_ordered_f64"] = max(
+            errs.get("segsum_ordered_f64", 0.0),
+            float((got - want).abs().max()),
+        )
+    times = {}
+    for label, su in shapes.items():  # every lane live: the longest solve
+        args = wf_inputs(su, dev, torch.float64)
+        nv, ne = args["eg_cap"].shape[0], args["ed_cap"].shape[0]
+        segs = ops.build_segments(args["src"], args["dst"], args["eid"], nv,
+                                  ne)
+        kw = dict(args, n_vms=nv, n_edges=ne)
+        times[label] = dict(
+            kernel_ms=kernel_ms(
+                lambda: ops.waterfill_rates(**args, segments=segs), 20
+            ),
+            plain_ms=cuda_ms(lambda: ref.masked_maxmin_rates(**kw), 3),
+        )
+    say("waterfill", cases=n, f64_bitwise=True,
+        max_abs_err={k: v for k, v in errs.items()}, f64_times=times)
+
+
+def phase_plan(top):
+    from repro_torch.core import Planner, PlanSpec, direct_plan
+    from repro_torch.core.solver import ipm_batch
+
+    ceiling = direct_plan(top, SRC, DST, FIG6_VOLUME_GB).cost_per_gb * 1.15
+
+    def spec(backend):
+        return PlanSpec(
+            objective="tput_max", src=SRC, dst=DST,
+            cost_ceiling_per_gb=ceiling, volume_gb=FIG6_VOLUME_GB,
+            n_samples=8, backend=backend,
+        )
+
+    res0, smp0 = ipm_batch._resolves.value, ipm_batch._batched_samples.value
+    t0 = time.perf_counter()
+    card = Planner(top).plan(spec("torch"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    resolves = ipm_batch._resolves.value - res0
+    samples = ipm_batch._batched_samples.value - smp0
+    numpy_plan = Planner(top).plan(spec("numpy"))
+    cpu_plan = Planner(top, device="cpu").plan(spec("torch"))
+    check(card.validate() == [] and numpy_plan.validate() == [],
+          "plan does not validate")
+    check(np.array_equal(card.N, numpy_plan.N), "N differs from numpy")
+    check(abs(card.cost_per_gb - numpy_plan.cost_per_gb) <= 1e-6,
+          "cost differs from numpy")
+    check(abs(card.tput_goal - numpy_plan.tput_goal)
+          <= 1e-6 * numpy_plan.tput_goal, "throughput differs from numpy")
+    check(resolves < samples, "every batched sample was re-solved")
+    # M is not unique (connections carry no cost): the card must land on
+    # the M the same torch IPM picks on the CPU
+    check(np.array_equal(card.N, cpu_plan.N)
+          and np.array_equal(card.M, cpu_plan.M),
+          "card plan differs from the CPU torch plan")
+    say("plan", wall_s=round(wall, 4), tput_gbps=card.tput_goal,
+        cost_per_gb=card.cost_per_gb,
+        cost_diff_vs_numpy=card.cost_per_gb - numpy_plan.cost_per_gb,
+        n_equal_numpy=True,
+        m_equal_numpy=bool(np.array_equal(card.M, numpy_plan.M)),
+        nm_equal_cpu_torch=True, resolves=int(resolves),
+        batched_samples=int(samples))
+    return card
+
+
+def fig6_jobs(top, plan):
+    from repro_torch.core import direct_plan
+    from repro_torch.transfer import (GrayFailure, LinkDegrade, LinkRestore,
+                                      TransferJob, VMFailure)
+
+    jobs = [
+        TransferJob(plan, "fig6", chunk_mb=CHUNK_MB),
+        TransferJob(direct_plan(top, SRC, DST, 64.0, num_vms=2), "late",
+                    arrival_s=60.0, chunk_mb=CHUNK_MB),
+    ]
+    path, _ = max(plan.paths(), key=lambda pf: pf[1])
+    first, last = (path[0], path[1]), (path[-2], path[-1])
+    faults = [
+        LinkDegrade(t_s=100.0, src=first[0], dst=first[1], factor=0.5),
+        GrayFailure(t_s=200.0, src=last[0], dst=last[1], factor=0.6),
+        VMFailure(t_s=300.0, job=0, region=plan.src, count=1),
+        LinkRestore(t_s=400.0, src=first[0], dst=first[1], factor=2.0),
+    ]
+    return jobs, faults
+
+
+def traced_sim(jobs, faults, **kw):
+    """(result, wall seconds, Skytrace events) of one run."""
+    from repro_torch.obs import trace
+    from repro_torch.transfer import simulate
+
+    tr = trace.enable(capacity=1 << 20)
+    try:
+        t0 = time.perf_counter()
+        res = simulate(jobs, faults, **kw)
+        if kw.get("device") != "cpu":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, tr.events()
+    finally:
+        trace.disable()
+
+
+def same_run(card, cpu, what: str) -> None:
+    check(card.events == cpu.events and card.time_s == cpu.time_s,
+          f"{what}: card and CPU runs differ in events or time")
+    for a, b in zip(card.jobs, cpu.jobs):
+        check(dataclasses.asdict(a) == dataclasses.asdict(b),
+              f"{what}: card and CPU results differ for job {a.name}")
+
+
+def phase_sim(jobs, faults):
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.transfer.flowsim_torch import simulate_multi_torch
+
+    seq = REGISTRY.counter("sim.seq_cascades")
+    card, wall, card_tr = traced_sim(jobs, faults)
+    cpu, cpu_wall, cpu_tr = traced_sim(jobs, faults, device="cpu")
+    same_run(card, cpu, "fig6")
+    check(card_tr == cpu_tr, "card and CPU Skytrace streams differ")
+    check(all(j.status == "done" for j in card.jobs), "a job did not finish")
+    # a multicast job through relays with a relay buffer of one chunk:
+    # the host-side sequential cascade fires on most iterations
+    mc_jobs, mc_faults = relay_jobs(jobs[0].plan.top)
+    seq0 = seq.value
+    tight, tight_wall, _ = traced_sim(mc_jobs, mc_faults,
+                                      relay_buffer_chunks=1)
+    fired = seq.value - seq0
+    tight_cpu, _, _ = traced_sim(mc_jobs, mc_faults, device="cpu",
+                                 relay_buffer_chunks=1)
+    same_run(tight, tight_cpu, "multicast, relay_buffer_chunks=1")
+    check(fired > 0, "the sequential cascade never fired")
+    check(card.jobs[0].n_chunks == 10_240, "the Fig. 6 job is not 10,240")
+    check(sum(j.retried_chunks for j in card.jobs) > 0,
+          "the VM failure forced no retries")
+    f32 = simulate_multi_torch(jobs, faults, rate_solver="f32")
+    torch.cuda.synchronize()
+    check([j.chunks_delivered for j in f32.jobs]
+          == [j.chunks_delivered for j in card.jobs], "f32 run lost chunks")
+    say("sim", chunks=[j.n_chunks for j in card.jobs], events=card.events,
+        sim_time_s=card.time_s, wall_s=round(wall, 4),
+        events_per_s=round(card.events / wall, 1),
+        cpu_wall_s=round(cpu_wall, 4), asdict_equal_cpu=True,
+        trace_equal_cpu=True, trace_events=len(card_tr),
+        retried=[j.retried_chunks for j in card.jobs],
+        relay1_events=tight.events, relay1_seq_cascades=int(fired),
+        relay1_wall_s=round(tight_wall, 4),
+        f32_sim_time_s=f32.time_s, f32_events=f32.events)
+
+
+def relay_jobs(top):
+    """The reference's multicast-plus-unicast sim scenario: a three-way
+    replication through relays and a delayed unicast job, one VM failure."""
+    from repro_torch.core import Planner, PlanSpec, direct_plan
+    from repro_torch.transfer import TransferJob, VMFailure
+
+    mc = Planner(top, max_relays=6).plan(PlanSpec(
+        objective="cost_min", src="gcp:us-central1",
+        dsts=("gcp:europe-west1", "gcp:europe-west3", "gcp:europe-west4"),
+        tput_goal_gbps=2.0, volume_gb=1.0,
+    ))
+    jobs = [
+        TransferJob(mc, "repl"),
+        TransferJob(direct_plan(top, BIG_SRC, BIG_DST, 0.5, num_vms=2),
+                    "uni", arrival_s=0.5),
+    ]
+    kill = next(int(r) for r in mc.dsts if mc.N[r] >= 1)
+    return jobs, [VMFailure(t_s=0.8, job=0, region=kill, count=1)]
+
+
+def big_jobs(top):
+    from repro_torch.core import direct_plan
+    from repro_torch.transfer import TransferJob
+
+    volume = BIG_CHUNKS * CHUNK_MB / 1024
+    return [TransferJob(
+        direct_plan(top, BIG_SRC, BIG_DST, volume, num_vms=2), "1e5",
+        chunk_mb=CHUNK_MB,
+    )]
+
+
+def phase_sim_1e5(jobs):
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.transfer import simulate
+
+    wf = REGISTRY.counter("kernels.waterfill_f64.launches")
+    ss = REGISTRY.counter("kernels.segsum_ordered.launches")
+    n0, s0 = wf.value, ss.value
+    t0 = time.perf_counter()
+    res = simulate(jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    job = res.jobs[0]
+    check(job.status == "done" and job.chunks_delivered == BIG_CHUNKS,
+          "the 1e5-chunk job did not deliver every chunk")
+    launches = int(wf.value - n0)
+    check(launches > 0, "the water-filling kernel was never launched")
+    say("sim_1e5", chunks=job.n_chunks, events=res.events,
+        sim_time_s=res.time_s, wall_s=round(wall, 3),
+        events_per_s=round(res.events / wall, 1),
+        waterfill_launches=launches, segsum_launches=int(ss.value - s0))
+
+
+def phase_profile(jobs):
+    """A steady window of the 1e5-chunk sim's event loop under
+    torch.profiler: how busy the card is, and with what. The window runs
+    from the first to the last water-filling launch (one per iteration),
+    so the scenario's set-up stays out of it. The same horizon also runs
+    unprofiled on the card and on the CPU: the unprofiled idle share is the
+    profiled run's device time over the unprofiled wall, and the CPU run
+    (held equal to the card's) is the baseline a faster loop must beat."""
+    from repro_torch.transfer import simulate
+
+    horizon = 8.0  # sim seconds: ~120 iterations of this scenario
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        res = simulate(jobs, horizon_s=horizon, **kw)
+        if kw.get("device") != "cpu":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    timed()
+    card, card_wall = timed()
+    timed(device="cpu")
+    cpu, cpu_wall = timed(device="cpu")
+    same_run(card, cpu, "1e5 horizon window")
+    t0 = time.perf_counter()
+    res, dev = profiled(lambda: simulate(jobs, horizon_s=horizon))
+    wall = time.perf_counter() - t0
+    wf = [(s, e) for n, s, e in dev if "waterfill_kernel" in n]
+    check(len(wf) > 10, "the profiler saw no event loop")
+    lo, hi = min(s for s, _ in wf), max(e for _, e in wf)
+    win = [(n, s, e) for n, s, e in dev if s >= lo and e <= hi]
+    busy = sum(e - s for _, s, e in win)
+    busy_all = sum(e - s for _, s, e in dev)
+    by_name: dict = {}
+    for n, s, e in win:
+        key = n.split("(")[0].replace("void ", "")[:60]
+        by_name[key] = by_name.get(key, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    say("profile", sim_events=res.events, loop_iterations=len(wf),
+        window_us=round(hi - lo, 1), device_busy_us=round(busy, 1),
+        device_idle_share_profiled=round(1.0 - busy / (hi - lo), 4),
+        device_idle_share_unprofiled=round(
+            1.0 - busy_all / (card_wall * 1e6), 4),
+        device_us_per_iteration=round(busy / len(wf), 2),
+        launches_per_iteration=round(len(win) / len(wf), 1),
+        wall_us_per_iteration_profiled=round((hi - lo) / len(wf), 1),
+        profiled_wall_s=round(wall, 3),
+        card_wall_s=card_wall, card_events_per_s=card.events / card_wall,
+        cpu_wall_s=cpu_wall, cpu_events_per_s=cpu.events / cpu_wall,
+        top_device_us={k: round(v, 1) for k, v in top})
+
+
+def phase_kernels(shapes, dev, launches, errs):
+    from repro_torch.kernels.waterfill import ops, ref
+
+    out, extra = [], {}
+    su = shapes["sim"]
+    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        name = f"waterfill_{precision}"
+        per_shape = {}
+        for label, s in shapes.items():
+            args = wf_inputs(s, dev, dtype)
+            segs = ops.build_segments(args["src"], args["dst"], args["eid"],
+                                      args["eg_cap"].shape[0],
+                                      args["ed_cap"].shape[0])
+            kw = dict(args, n_vms=args["eg_cap"].shape[0],
+                      n_edges=args["ed_cap"].shape[0])
+            if precision == "f64":
+                def plain():
+                    return ref.masked_maxmin_rates(**kw)
+            else:
+                n_it = 2 * kw["n_vms"] + kw["n_edges"] + 4
+                kw.pop("n_vms"), kw.pop("n_edges")
+
+                def plain():
+                    return ref.waterfill_rounds_f32(**kw, n_iters=n_it)
+
+            def kernel():
+                return ops.waterfill_rates(**args, precision=precision,
+                                           segments=segs)
+            got = kernel().cpu()
+            want = ops.waterfill_rates(**to_cpu(args), precision=precision)
+            errs[name] = max(errs[name], float((got - want).abs().max()))
+            rounds = live_rounds(args, precision)
+            bound, by = wf_bound(args, rounds, precision)
+            per_shape[label] = dict(
+                conns=args["caps"].shape[0], vms=args["eg_cap"].shape[0],
+                edges=args["ed_cap"].shape[0], rounds=rounds,
+                ms=kernel_ms(kernel, 50),
+                call_ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 5),
+                bound_ms=bound, bound_by=by,
+            )
+        main = per_shape["sim"]
+        out.append(dict(
+            name=name, route="cuda", source=WF_SOURCE, replaces=WF_TPU,
+            launches=launches[name], max_abs_err=errs[name], ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=None,
+            call_ms=main["call_ms"],
+        ))
+        extra[name] = per_shape
+    # ordered segment sum at the sim's per-(job, edge) map
+    ne = len(su.edges_used)
+    je = torch.as_tensor(su.conn_job * ne + su.conn_edge, device=dev)
+    nseg = len(su.arrivals) * ne
+    lists = ops.csr(je, nseg)
+    w = torch.as_tensor(np.random.default_rng(5).uniform(0, 3, je.shape[0]),
+                        device=dev)
+    n = je.shape[0]
+    got = ops.segment_sum_ordered(w, je, nseg, lists=lists).cpu()
+    want = ref.segment_sum_ordered(w.cpu(), je.cpu(), nseg)
+    errs["segsum_ordered_f64"] = max(errs["segsum_ordered_f64"],
+                                     float((got - want).abs().max()))
+    nbytes = n * 8 + n * 4 + (nseg + 1) * 4 + nseg * 8
+    t_b, t_o = nbytes / HBM_BYTES_S, n / PEAK_OPS["f64"]
+
+    def segsum():
+        return ops.segment_sum_ordered(w, je, nseg, lists=lists)
+
+    out.append(dict(
+        name="segsum_ordered_f64", route="cuda", source=WF_SOURCE,
+        replaces=SEGSUM_REPLACES, launches=launches["segsum_ordered_f64"],
+        max_abs_err=errs["segsum_ordered_f64"],
+        ms=kernel_ms(segsum, 50),
+        plain_ms=cuda_ms(lambda: ref.segment_sum_ordered(w, je, nseg), 500),
+        bound_ms=max(t_b, t_o) * 1e3,
+        bound_by="bytes" if t_b >= t_o else "operations",
+        library_ms=cuda_ms(
+            lambda: torch.zeros(nseg, dtype=torch.float64, device=dev)
+            .index_add_(0, je, w), 500),
+        call_ms=cuda_ms(segsum, 500),
+    ))
+    extra["segsum_ordered_f64"] = {"lanes": n, "segments": nseg}
+    return out, extra
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write every phase's numbers here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import default_topology
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.transfer.events import materialize_jobs
+
+    dev = torch.device("cuda")
+    card = phase_build()
+    top = default_topology()
+    from repro_torch.core import Planner, PlanSpec, direct_plan
+
+    ceiling = direct_plan(top, SRC, DST, FIG6_VOLUME_GB).cost_per_gb * 1.15
+    shape_plan = Planner(top).plan(PlanSpec(
+        objective="tput_max", src=SRC, dst=DST, cost_ceiling_per_gb=ceiling,
+        volume_gb=FIG6_VOLUME_GB, n_samples=8,
+    ))
+    errs: dict = {}
+    phase_waterfill({
+        "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
+        "sim_1e5": materialize_jobs(big_jobs(top)),
+    }, dev, errs)
+
+    # ---- the main path: every launch count starts at 0 here
+    counters = {
+        "waterfill_f64": "kernels.waterfill_f64.launches",
+        "waterfill_f32": "kernels.waterfill_f32.launches",
+        "segsum_ordered_f64": "kernels.segsum_ordered.launches",
+    }
+    for c in counters.values():
+        REGISTRY.counter(c).reset()
+    plan = phase_plan(top)
+    jobs, faults = fig6_jobs(top, plan)
+    phase_sim(jobs, faults)
+    big = big_jobs(top)
+    phase_sim_1e5(big)
+    launches = {k: int(REGISTRY.counter(c).value) for k, c in counters.items()}
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the main path")
+
+    phase_profile(big)
+    kernels, shapes = phase_kernels({
+        "sim": materialize_jobs(jobs), "sim_1e5": materialize_jobs(big),
+    }, dev, launches, errs)
+    line = {"kernels": kernels}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"card": card, "kernels": kernels, "shapes": shapes}, indent=1,
+            default=float,
+        ))
+    say("kernels_by_shape", **shapes)
+    print(json.dumps(line, default=float), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,137 @@
+"""Carry planning state into the port.
+
+What the port is given is not model weights but a network and plans: a
+``Topology`` (the throughput, price and limit grids over named regions)
+and ``TransferPlan`` / ``MulticastPlan`` allocations on it, with the jobs
+and scripted faults a simulation runs. This module moves them across as
+plain state: numpy arrays, region keys and scalars.
+
+``*_state`` functions read any object with the reference's attribute
+names (the reference package's objects or the port's) and return plain
+dictionaries; ``*_from_state`` functions build the port's objects from
+them. Nothing here imports the reference package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.plan import MulticastPlan, TransferPlan
+from .core.topology import Region, Topology
+from .transfer import events
+
+_GRIDS = ("tput", "price_egress", "price_vm", "limit_ingress", "limit_egress")
+_FAULTS = {
+    cls.__name__: cls
+    for cls in (events.LinkDegrade, events.GrayFailure, events.LinkRestore,
+                events.VMFailure)
+}
+
+
+def topology_state(top) -> dict:
+    """Grids as float64 arrays, regions as keys plus their continent and
+    coordinates, and the two service limits."""
+    st = {k: np.array(getattr(top, k), dtype=np.float64) for k in _GRIDS}
+    st["rtt_ms"] = (
+        None if top.rtt_ms is None
+        else np.array(top.rtt_ms, dtype=np.float64)
+    )
+    st["region_keys"] = [r.key for r in top.regions]
+    st["region_continent"] = [r.continent for r in top.regions]
+    st["region_latlon"] = np.array(
+        [[r.lat, r.lon] for r in top.regions], dtype=np.float64
+    ).reshape(-1, 2)
+    st["limit_conn"] = int(top.limit_conn)
+    st["limit_vm"] = int(top.limit_vm)
+    return st
+
+
+def topology_from_state(st: dict) -> Topology:
+    regions = []
+    for key, cont, (lat, lon) in zip(
+        st["region_keys"], st["region_continent"], st["region_latlon"]
+    ):
+        provider, name = key.split(":", 1)
+        regions.append(Region(provider, name, cont, float(lat), float(lon)))
+    return Topology(
+        regions=regions,
+        **{k: np.array(st[k], dtype=np.float64) for k in _GRIDS},
+        rtt_ms=None if st["rtt_ms"] is None else np.array(st["rtt_ms"]),
+        limit_conn=st["limit_conn"],
+        limit_vm=st["limit_vm"],
+    )
+
+
+def plan_state(plan) -> dict:
+    """A unicast or multicast plan's allocation and request, without its
+    topology (carried once with ``topology_state``)."""
+    st = {
+        "src": int(plan.src),
+        "volume_gb": float(plan.volume_gb),
+        "N": np.array(plan.N, dtype=np.float64),
+        "M": np.array(plan.M, dtype=np.float64),
+        "F": np.array(plan.F, dtype=np.float64),
+        "solver_status": str(plan.solver_status),
+    }
+    if hasattr(plan, "dsts"):
+        st.update(
+            kind="multicast", dsts=[int(d) for d in plan.dsts],
+            tput_goals=np.array(plan.tput_goals, dtype=np.float64),
+            G=np.array(plan.G, dtype=np.float64),
+        )
+    else:
+        st.update(kind="unicast", dst=int(plan.dst),
+                  tput_goal=float(plan.tput_goal))
+    return st
+
+
+def plan_from_state(st: dict, top: Topology):
+    common = dict(
+        top=top, src=st["src"], volume_gb=st["volume_gb"],
+        F=np.array(st["F"]), N=np.array(st["N"]), M=np.array(st["M"]),
+        solver_status=st["solver_status"],
+    )
+    if st["kind"] == "multicast":
+        return MulticastPlan(
+            dsts=list(st["dsts"]), tput_goals=np.array(st["tput_goals"]),
+            G=np.array(st["G"]), **common,
+        )
+    return TransferPlan(dst=st["dst"], tput_goal=st["tput_goal"], **common)
+
+
+def to_port_topology(top) -> Topology:
+    return topology_from_state(topology_state(top))
+
+
+def to_port_plan(plan, top: Topology | None = None):
+    """``plan`` as the port's plan object, on ``top`` (default: its own
+    topology carried across)."""
+    if top is None:
+        top = to_port_topology(plan.top)
+    return plan_from_state(plan_state(plan), top)
+
+
+def to_port_jobs(jobs) -> list:
+    """``TransferJob``s carried across; jobs whose plans share one
+    topology object share one converted topology."""
+    tops: dict[int, Topology] = {}
+    out = []
+    for job in jobs:
+        key = id(job.plan.top)
+        if key not in tops:
+            tops[key] = to_port_topology(job.plan.top)
+        out.append(events.TransferJob(
+            plan=to_port_plan(job.plan, tops[key]), name=str(job.name),
+            arrival_s=float(job.arrival_s), chunk_mb=float(job.chunk_mb),
+        ))
+    return out
+
+
+def to_port_faults(faults) -> list:
+    """Scripted fault events carried across by class name and fields."""
+    out = []
+    for f in faults:
+        cls = _FAULTS[type(f).__name__]
+        fields = cls.__dataclass_fields__
+        out.append(cls(**{k: getattr(f, k) for k in fields}))
+    return out

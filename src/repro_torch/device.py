@@ -1,0 +1,19 @@
+"""Where the port runs: the card unless the caller names another device."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card, and raises when there is none; any
+    other value (``"cpu"``, ``"cuda:1"``, a ``torch.device``) is taken as
+    given. Nothing falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card unless the "
+                'caller passes device="cpu"'
+            )
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,211 @@
+"""Public wrappers of the water-filling kernels.
+
+``waterfill_rates`` and ``segment_sum_ordered`` take the plain PyTorch
+version (``ref.py``) for tensors on the CPU and launch the CUDA kernel
+(``csrc/waterfill.cu``) for tensors on the card; there is no other route
+and no fallback. Each launch adds one to its kernel's counter in the
+port's metrics registry (``kernels.waterfill_f64.launches``,
+``kernels.waterfill_f32.launches``, ``kernels.segsum_ordered.launches``);
+CPU calls do not count.
+
+The kernels walk CSR lists (row -> ascending connection lanes) instead of
+one-hot matrices. The maps they encode are constant for a scenario, so a
+caller that solves many times (the sim) builds them once with
+``build_segments`` / ``csr``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.obs.metrics import REGISTRY
+
+from . import ref
+
+_DTYPES = {"f64": torch.float64, "f32": torch.float32}
+_launches = {
+    p: REGISTRY.counter(f"kernels.waterfill_{p}.launches") for p in _DTYPES
+}
+_segsum_launches = REGISTRY.counter("kernels.segsum_ordered.launches")
+
+
+class Segments(NamedTuple):
+    """CSR lists of connection lanes per VM egress, VM ingress and edge."""
+
+    src_off: torch.Tensor  # int32 [nv + 1]
+    src_idx: torch.Tensor  # int32 [nc]
+    dst_off: torch.Tensor
+    dst_idx: torch.Tensor
+    ed_off: torch.Tensor  # int32 [ne + 1] ([1] when there are no edges)
+    ed_idx: torch.Tensor
+
+
+def csr(idx: torch.Tensor, n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(offsets int32 [n_rows + 1], lanes int32 [n]): the lanes of each row
+    in ascending order. Raises if an index lies outside [0, n_rows)."""
+    idx = idx.to(torch.int64)
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n_rows):
+        raise ValueError(f"segment index outside [0, {n_rows})")
+    order = torch.argsort(idx, stable=True)
+    counts = torch.zeros(n_rows, dtype=torch.int64, device=idx.device)
+    counts.index_add_(0, idx, torch.ones_like(idx))
+    off = torch.zeros(n_rows + 1, dtype=torch.int64, device=idx.device)
+    off[1:] = torch.cumsum(counts, 0)
+    return off.to(torch.int32), order.to(torch.int32)
+
+
+def build_segments(src, dst, eid, n_vms: int, n_edges: int) -> Segments:
+    """The three CSR lists of a connection set (``eid`` None: no edges)."""
+    so, si = csr(src, n_vms)
+    do, di = csr(dst, n_vms)
+    if eid is None or n_edges == 0:
+        eo = torch.zeros(1, dtype=torch.int32, device=src.device)
+        ei = torch.zeros(0, dtype=torch.int32, device=src.device)
+    else:
+        eo, ei = csr(eid, n_edges)
+    return Segments(so, si, do, di, eo, ei)
+
+
+def _check(t: torch.Tensor, name: str, dtype, n: int, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({n},)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
+                    active=None, *, precision: str = "f64",
+                    n_edges_bound: int | None = None, changed=None,
+                    prev=None, segments: Segments | None = None
+                    ) -> torch.Tensor:
+    """Max-min fair per-connection rates over the ``active`` lanes.
+
+    caps/src/dst/eid/active are per-connection lanes [NC]; eg_cap/in_cap
+    per-VM budgets [NV]; ed_cap the shared per-edge budgets [NE], or None
+    without link contention. Returns rates [NC], 0.0 on inactive lanes.
+
+    ``precision="f64"`` is the sim's parity solver (``ref.
+    masked_maxmin_rates``, bitwise); ``n_edges_bound`` overrides the edge
+    term of its round bound. ``precision="f32"`` is the TPU kernel's
+    counterpart (``ref.waterfill_rounds_f32``): without edges it pins every
+    lane to one BIG edge, as the TPU wrapper does, and runs the TPU
+    kernel's ``2*nv + ne + 4`` rounds.
+
+    ``changed`` (a bool scalar tensor on the caps' device) with ``prev``
+    (rates of the caps' dtype) returns ``prev`` when the flag is False;
+    on the card the kernel reads the flag itself, so nothing syncs.
+    """
+    if precision not in _DTYPES:
+        raise ValueError(f"unknown precision {precision!r} (f64 or f32)")
+    dtype = _DTYPES[precision]
+    dev = caps.device
+    nc, nv = caps.shape[0], eg_cap.shape[0]
+    if active is None:
+        active = torch.ones(nc, dtype=torch.bool, device=dev)
+    if precision == "f32" and ed_cap is None:
+        eid = torch.zeros(nc, dtype=src.dtype, device=dev)
+        ed_cap = torch.full((1,), ref.BIG, dtype=dtype, device=dev)
+    ne = 0 if ed_cap is None else ed_cap.shape[0]
+    if n_edges_bound is None:
+        n_edges_bound = ne
+    n_iters = 2 * nv + ne + 4  # the f32 rounds (the f64 bound is adaptive)
+    if (changed is None) != (prev is None):
+        raise ValueError("changed and prev go together")
+
+    if dev.type == "cpu":
+        if changed is not None and not bool(changed):
+            return prev.clone()
+        if precision == "f64":
+            return ref.masked_maxmin_rates(
+                caps, src, dst, eg_cap, in_cap, eid, ed_cap, active,
+                n_vms=nv, n_edges=ne, n_edges_bound=n_edges_bound,
+            )
+        return ref.waterfill_rounds_f32(
+            caps, src, dst, eg_cap, in_cap, eid, ed_cap, active,
+            n_iters=n_iters,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"no water-filling kernel for device {dev}")
+
+    from .build import load
+
+    lib = load()
+    i32 = torch.int32
+    _check(caps, "caps", dtype, nc, dev)
+    _check(src, "src", i32, nc, dev)
+    _check(dst, "dst", i32, nc, dev)
+    _check(eg_cap, "eg_cap", dtype, nv, dev)
+    _check(in_cap, "in_cap", dtype, nv, dev)
+    _check(active, "active", torch.bool, nc, dev)
+    if ed_cap is not None:
+        _check(eid, "eid", i32, nc, dev)
+        _check(ed_cap, "ed_cap", dtype, ne, dev)
+    if changed is not None:
+        _check(changed.reshape(1), "changed", torch.bool, 1, dev)
+        _check(prev, "prev", dtype, nc, dev)
+    elem = 8 if dtype == torch.float64 else 4
+    if (lib.waterfill_smem_bytes(nc, nv, ne, elem)
+            > lib.waterfill_smem_limit(elem)):
+        raise ValueError(
+            f"{nc} connections, {nv} VMs and {ne} edges do not fit one "
+            "block's shared memory"
+        )
+    if segments is None:
+        segments = build_segments(src, dst, eid if ne else None, nv, ne)
+    out = torch.empty(nc, dtype=dtype, device=dev)
+    if nc == 0:
+        return out
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = lib.waterfill_f64 if precision == "f64" else lib.waterfill_f32
+    rc = fn(
+        ptr(caps), ptr(src), ptr(dst), ptr(eid), ptr(eg_cap), ptr(in_cap),
+        ptr(ed_cap), ptr(active), ptr(changed), ptr(prev),
+        *(ptr(t) for t in segments), ptr(out), nc, nv, ne,
+        n_edges_bound, -1 if precision == "f64" else n_iters,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"waterfill kernel launch failed: CUDA error {rc}")
+    _launches[precision].inc()
+    return out
+
+
+def segment_sum_ordered(values, seg, n_segments: int, *,
+                        lists: tuple[torch.Tensor, torch.Tensor] | None = None
+                        ) -> torch.Tensor:
+    """f64 ``out[s] = 0.0 + values[i0] + values[i1] + ...`` over the lanes
+    with ``seg[i] == s`` in ascending lane order, on any device.
+    ``lists`` is ``csr(seg, n_segments)``, built once by callers that sum
+    over the same map many times."""
+    if values.device.type == "cpu":
+        return ref.segment_sum_ordered(values, seg, n_segments)
+    if values.device.type != "cuda":
+        raise ValueError(f"no segment-sum kernel for device {values.device}")
+    from .build import load
+
+    lib = load()
+    if lists is None:
+        lists = csr(seg, n_segments)
+    off, idx = lists
+    n = values.shape[0]
+    _check(values, "values", torch.float64, n, values.device)
+    _check(off, "offsets", torch.int32, n_segments + 1, values.device)
+    _check(idx, "lanes", torch.int32, n, values.device)
+    out = torch.empty(n_segments, dtype=torch.float64, device=values.device)
+    rc = lib.segsum_ordered_f64(
+        values.data_ptr(), off.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        n_segments, torch.cuda.current_stream(values.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {rc}")
+    _segsum_launches.inc()
+    return out

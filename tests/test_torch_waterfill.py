@@ -1,0 +1,196 @@
+"""The port's water-filling against the reference package's.
+
+On the CPU the port's wrapper takes the plain versions (``repro_torch.
+kernels.waterfill.ref``); these tests hold them against the reference:
+
+  * the f64 parity solver is BITWISE equal to the numpy sim's
+    ``_maxmin_rates_arr`` on the active lanes and to the reference's jnp
+    ``masked_maxmin_rates`` (float64) on every lane;
+  * the f32 rounds match the reference's Pallas kernel (interpret mode on
+    the CPU) at the f32 tolerance the reference's own kernel test uses.
+
+The CUDA kernel itself runs only on the card (``gpu`` marker), where it is
+held against these plain versions.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.waterfill.ops import waterfill_rates as pallas_rates
+from repro.kernels.waterfill.ref import masked_maxmin_rates as jnp_masked
+from repro.transfer.flowsim import _maxmin_rates_arr
+from repro_torch.kernels.waterfill import ops, ref
+from repro_torch.obs.metrics import REGISTRY
+
+
+def _case(seed, *, with_edges):
+    """A padded max-min scenario: nc live lanes scattered across ncp slots,
+    junk caps in the dead lanes (the mask must neutralize them)."""
+    rng = np.random.default_rng(seed)
+    nv = int(rng.integers(2, 10))
+    nc = int(rng.integers(1, 40))
+    ncp = nc + int(rng.integers(0, 17))
+    active = np.zeros(ncp, dtype=bool)
+    active[rng.permutation(ncp)[:nc]] = True
+    caps = np.where(active, rng.uniform(0.5, 8.0, ncp), 123.0)
+    src = rng.integers(0, nv, ncp)
+    dst = rng.integers(0, nv, ncp)
+    eg = rng.uniform(1.0, 12.0, nv)
+    inn = rng.uniform(1.0, 12.0, nv)
+    if with_edges:
+        ne = int(rng.integers(1, 5))
+        eid = rng.integers(0, ne, ncp)
+        ed = rng.uniform(2.0, 20.0, ne)
+    else:
+        ne, eid, ed = 0, np.zeros(ncp, dtype=np.int64), None
+    return caps, src, dst, eg, inn, eid, ed, active, nv, ne
+
+
+def _port_rates(case, precision, **kw):
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = case
+    dtype = torch.float64 if precision == "f64" else torch.float32
+
+    def f(a):
+        return torch.as_tensor(a, dtype=dtype)
+
+    return ops.waterfill_rates(
+        f(caps), torch.as_tensor(src), torch.as_tensor(dst), f(eg), f(inn),
+        None if ed is None else torch.as_tensor(eid),
+        None if ed is None else f(ed), torch.as_tensor(active),
+        precision=precision, **kw,
+    ).numpy()
+
+
+@pytest.mark.parametrize("with_edges", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_f64_bitwise_vs_numpy_oracle_and_jnp_masked(seed, with_edges):
+    case = _case(seed, with_edges=with_edges)
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = case
+    got = _port_rates(case, "f64")
+    want = _maxmin_rates_arr(
+        caps[active], src[active], dst[active], eg, inn,
+        eid[active] if ed is not None else None, ed,
+    )
+    assert np.array_equal(got[active], want)
+    assert np.all(got[~active] == 0.0)
+    with jax.enable_x64(True):
+        ref_jnp = np.asarray(jnp_masked(
+            jnp.asarray(caps), jnp.asarray(src), jnp.asarray(dst),
+            jnp.asarray(eg), jnp.asarray(inn), jnp.asarray(eid),
+            None if ed is None else jnp.asarray(ed),
+            jnp.asarray(active), n_vms=nv, n_edges=ne,
+        ))
+    assert ref_jnp.dtype == np.float64
+    assert np.array_equal(got, ref_jnp)
+
+
+@pytest.mark.parametrize("with_edges", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_f32_rounds_match_pallas_kernel(seed, with_edges):
+    """The f32 transliteration of the TPU kernel's rounds against the
+    reference's Pallas kernel, at the reference kernel test's tolerance
+    (rtol = atol = 5e-3: both are f32 and sum in different orders)."""
+    case = _case(seed, with_edges=with_edges)
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = case
+    got = _port_rates(case, "f32")
+    want = np.asarray(pallas_rates(
+        caps, src, dst, eg, inn, eid if ed is not None else None, ed, active,
+    ))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got[active], want[active], rtol=5e-3,
+                               atol=5e-3)
+    assert np.all(got[~active] == 0.0)
+    oracle = _maxmin_rates_arr(
+        caps[active], src[active], dst[active], eg, inn,
+        eid[active] if ed is not None else None, ed,
+    )
+    np.testing.assert_allclose(got[active], oracle, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_changed_flag_returns_cached_rates(precision):
+    case = _case(7, with_edges=True)
+    first = _port_rates(case, precision)
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    prev = torch.full((first.shape[0],), 3.25, dtype=dtype)
+    same = _port_rates(case, precision, changed=torch.tensor(False),
+                       prev=prev)
+    assert np.all(same == 3.25)
+    again = _port_rates(case, precision, changed=torch.tensor(True),
+                        prev=prev)
+    assert np.array_equal(again, first)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_ordered_segment_sum_is_bincount(seed):
+    rng = np.random.default_rng(seed)
+    n, nseg = int(rng.integers(1, 300)), int(rng.integers(1, 9))
+    seg = rng.integers(0, nseg, n)
+    vals = rng.uniform(0.0, 5.0, n) * (rng.uniform(size=n) < 0.7)
+    got = ops.segment_sum_ordered(
+        torch.as_tensor(vals), torch.as_tensor(seg), nseg
+    ).numpy()
+    assert np.array_equal(got, np.bincount(seg, weights=vals, minlength=nseg))
+
+
+def test_csr_lists_are_ascending_per_row():
+    rng = np.random.default_rng(3)
+    idx = torch.as_tensor(rng.integers(0, 6, 50))
+    off, lanes = ops.csr(idx, 7)
+    off, lanes = off.numpy(), lanes.numpy()
+    assert off[0] == 0 and off[-1] == 50 and off[-2] == off[-1]  # row 6 empty
+    for r in range(7):
+        row = lanes[off[r]:off[r + 1]]
+        assert np.all(np.diff(row) > 0)
+        assert np.all(idx.numpy()[row] == r)
+    with pytest.raises(ValueError):
+        ops.csr(torch.tensor([0, 7]), 7)
+
+
+def test_no_kernel_and_no_fallback_off_cpu_and_cuda():
+    """A tensor on a device with no kernel raises; nothing is quietly
+    computed by the plain version."""
+    z = torch.zeros(4, device="meta")
+    i = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.waterfill_rates(z, i, i, z, z)
+    with pytest.raises(ValueError):
+        ops.segment_sum_ordered(z.double(), i, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_edges", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_cuda_kernels_match_plain_versions(seed, with_edges):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = _case(
+        seed, with_edges=with_edges
+    )
+    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        args = [
+            torch.as_tensor(caps, dtype=dtype),
+            torch.as_tensor(src, dtype=torch.int32),
+            torch.as_tensor(dst, dtype=torch.int32),
+            torch.as_tensor(eg, dtype=dtype), torch.as_tensor(inn, dtype=dtype),
+            None if ed is None else torch.as_tensor(eid, dtype=torch.int32),
+            None if ed is None else torch.as_tensor(ed, dtype=dtype),
+            torch.as_tensor(active),
+        ]
+        plain = ops.waterfill_rates(*args, precision=precision)
+        count = REGISTRY.counter(f"kernels.waterfill_{precision}.launches")
+        n0 = count.value
+        got = ops.waterfill_rates(
+            *[None if a is None else a.cuda() for a in args],
+            precision=precision,
+        ).cpu()
+        assert count.value == n0 + 1
+        if precision == "f64":
+            assert torch.equal(got, plain)
+        else:
+            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
