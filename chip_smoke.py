@@ -1,18 +1,24 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py [--out FILE.json]
 
 Skyplane's main path is plan, then move. This script builds the port's
-CUDA kernels from ``src/repro_torch/kernels/waterfill/csrc/waterfill.cu``,
-holds each against its plain PyTorch version, then plans the Fig. 6 route
-on the card (batched torch IPM) and moves the plan's chunks through the
-device-resident sim, first at 10,240 chunks of 64 MB with scripted faults
-(held field for field against the same run on the CPU), then at 100,000
-chunks. Each phase prints one line; the line before the last lists every
-kernel with its launches on the main path, its error against its plain
-version, its time and its bound; the last line is the device summary.
-Any failed check raises, and the script then exits non-zero without the
-summary. It exits non-zero at once where there is no CUDA card.
+CUDA kernels (one nvcc per source under ``src/repro_torch/kernels/*/csrc``,
+all started together), holds each against its plain PyTorch version, then
+plans the Fig. 6 route on the card (batched torch IPM) and moves the
+plan's chunks through the device-resident sim, first at 10,240 chunks of
+64 MB with scripted faults (held field for field against the same run on
+the CPU), then at 100,000 chunks. The model path follows: the flash
+attention and SSD scan kernels against their plain versions at Zamba2-7B's
+shapes and others, then ``zamba2-7b`` at full width and depth (6.75e9 f32
+parameters from a seed): served through ``repro_torch.launch.serve`` (a
+4 x 4096 prefill, then greedy decode), its ``forward`` with the kernels
+against the plain path, and a reduced copy on the card against the CPU.
+Each phase prints one line; the line before the last lists every kernel
+with its launches on the main paths, its error against its plain version,
+its time and its bound; the last line is the device summary. Any failed
+check raises, and the script then exits non-zero without the summary. It
+exits non-zero at once where there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -38,9 +44,46 @@ CHUNK_MB = 64.0
 # peaks the kernels' float operations run at
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"f64": 34e12, "f32": 67e12}
+BF16_TENSOR_OPS = 989e12  # dense bf16 on tensor cores
 WF_SOURCE = "src/repro_torch/kernels/waterfill/csrc/waterfill.cu"
 WF_TPU = "src/repro/kernels/waterfill/waterfill.py:41"
 SEGSUM_REPLACES = "src/repro/transfer/flowsim_jax.py:325"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:32"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:30"
+# kernel-check shapes: Zamba2-7B's own (the model path), a GQA one
+# (qwen2-7b, 28:4 heads), a sliding-window one (mixtral's 4096 at 8192)
+# and a ragged S for each kernel
+FLASH_CASES = {
+    "zamba2": dict(b=4, s=4096, h=32, kv=32, d=112, window=None),
+    "qwen2_gqa": dict(b=1, s=4096, h=28, kv=4, d=128, window=None),
+    "mixtral_window": dict(b=1, s=8192, h=48, kv=8, d=128, window=4096),
+    "ragged": dict(b=2, s=1000, h=32, kv=32, d=112, window=None),
+}
+SSD_CASES = {
+    "zamba2": dict(b=4, s=4096, h=112, p=64, n=64, q=256),
+    "ragged": dict(b=2, s=1000, h=112, p=64, n=64, q=256),
+}
+# the tolerances of tests/test_kernels.py:45,84
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+SERVE_ARGS = ["--arch", "zamba2-7b", "--full", "--batch", "4",
+              "--prompt-len", "4096", "--decode", "32"]
+MODEL_B, MODEL_S = 4, 4096
+# [forward]: the kernels' path against the plain path (einsum attention,
+# ssd_chunked), both in f32, same parameters and tokens, relative to the
+# largest plain value. They differ only in the order the kernels sum in:
+# the f32 SSD kernel is within ~1.6e-5 of its plain version, relative, at
+# Zamba2's shape ([ssd]), and 108 random-weight sublayers amplify that
+# ~100x (1.9e-3 on the hidden state, 7.1e-4 on the logits, on an H100).
+# A kernel fault (a wrong mask, tile or chunk) moves them by O(1). The
+# bf16 forward with the kernels (the model's own type, the one whose
+# launches are counted) is compared and printed only: its rounding (2^-8
+# per op) drifts O(1) logits from f32 at this depth.
+FORWARD_F32_RTOL = 1e-2
+# [model_cpu]: f32 card (kernels, cuBLAS f32) against CPU (plain versions)
+MODEL_CPU_TOL = 1e-3
 
 
 def say(phase: str, **fields) -> None:
@@ -220,16 +263,23 @@ def live_rounds(args: dict, precision: str) -> int:
 
 # ------------------------------------------------------------------- phases
 def phase_build():
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.waterfill import build
 
+    libs = [build.LIBRARY, flash_ops.LIBRARY, ssd_ops.LIBRARY]
     t0 = time.perf_counter()
-    build.load()
+    nvcc.build_all(libs)
     seconds = time.perf_counter() - t0
     card = card_line()
     print(card, flush=True)
-    regs = [ln.strip() for ln in build.build_info()["ptxas"].splitlines()
-            if "registers" in ln]
-    say("build", seconds=round(seconds, 3), card=card, ptxas=regs)
+    regs = {lib.source.name: [
+        ln.strip() for ln in lib.ptxas.splitlines()
+        if "registers" in ln or "spill" in ln] for lib in libs}
+    say("build", seconds=round(seconds, 3), card=card,
+        nvcc_s={lib.source.name: round(lib.build_s, 3) for lib in libs},
+        ptxas=regs)
     return card
 
 
@@ -606,6 +656,367 @@ def phase_kernels(shapes, dev, launches, errs):
     return out, extra
 
 
+# ------------------------------------------------------------- model path
+def flash_inputs(c: dict, dtype, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(heads):
+        return torch.randn(c["b"], c["s"], heads, c["d"], generator=g,
+                           device="cuda").to(dtype)
+
+    return rn(c["h"]), rn(c["kv"]), rn(c["kv"])
+
+
+def ssd_inputs(c: dict, dtype, seed: int):
+    """x, dt, a, B, C as the reference's kernel tests draw them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    x = rn(c["b"], c["s"], c["h"], c["p"]).to(dtype)
+    dt = torch.nn.functional.softplus(rn(c["b"], c["s"], c["h"]))
+    a = -torch.exp(rn(c["h"]) * 0.3)
+    return (x, dt, a, rn(c["b"], c["s"], c["n"]).to(dtype),
+            rn(c["b"], c["s"], c["n"]).to(dtype))
+
+
+def flash_bound(c: dict, dtype) -> tuple[float, str]:
+    """q, k, v read once and out written once; 4 * D operations per
+    (query, visible key) pair (two products), counted over the causal and
+    window mask of this shape; f32 inputs at the f32 vector peak, bf16 at
+    the bf16 tensor-core peak."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    b, s, h, kv, d = c["b"], c["s"], c["h"], c["kv"], c["d"]
+    nbytes = e * b * s * d * (2 * h + 2 * kv)
+    w = c["window"] or s
+    pairs = sum(min(i + 1, w) for i in range(s))
+    ops = 4 * d * b * h * pairs
+    peak = BF16_TENSOR_OPS if dtype == torch.bfloat16 else PEAK_OPS["f32"]
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def ssd_bound(c: dict, dtype) -> tuple[float, str]:
+    """x, dt, a, B, C read once, y and the f32 state written once; per
+    (b, h, chunk): C.B and the weighted product with x over the causal
+    triangle (2N + 2P + 3 per pair), the carry-in and state products
+    (2 * 2PN per step); f32 at the vector peak, bf16 at the tensor-core
+    peak."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    b, s, h, p, n, q = (c[k] for k in "bshpnq")
+    s_pad = -(-s // q) * q
+    nbytes = (2 * e * b * s * h * p + 4 * b * s * h + 4 * h
+              + 2 * e * b * s * n + 4 * b * h * p * n)
+    per_chunk = q * (q + 1) // 2 * (2 * n + 2 * p + 3) + q * 4 * p * n
+    ops = b * h * (s_pad // q) * per_chunk
+    peak = BF16_TENSOR_OPS if dtype == torch.bfloat16 else PEAK_OPS["f32"]
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def phase_flash(errs):
+    """The flash kernel against its plain version on the card, f32 and
+    bf16, at every FLASH_CASES shape."""
+    from repro_torch.kernels.flash_attention import ops
+
+    out = {}
+    for label, c in FLASH_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(c, dtype, seed=1)
+            got = ops.flash_attention(q, k, v, window=c["window"])
+            want = ops.flash_attention_plain(q, k, v, window=c["window"])
+            check(bool(torch.isfinite(got).all()), f"flash {label}: not finite")
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= FLASH_TOL[dtype],
+                  f"flash {label} {dtype}: |kernel - plain| {err}")
+            errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                          err)
+            out[f"{label}_{str(dtype)[6:]}"] = err
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    say("flash", cases=len(out), max_abs_err=out, tol={
+        str(k)[6:]: v for k, v in FLASH_TOL.items()})
+
+
+def phase_ssd(errs):
+    """The SSD kernel against its plain version on the card, f32 and bf16,
+    at every SSD_CASES shape (y and the final state)."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    out, absmax = {}, {}
+    for label, c in SSD_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(c, dtype, seed=2)
+            y, st = ops.ssd_scan(*args, chunk=c["q"])
+            y0, st0 = ops.ssd_scan_plain(*args, chunk=c["q"])
+            check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+                  f"ssd {label}: not finite")
+            tol = SSD_TOL[dtype]
+            torch.testing.assert_close(y.float(), y0.float(), atol=tol,
+                                       rtol=tol)
+            torch.testing.assert_close(st, st0, atol=tol, rtol=tol)
+            err = max(float((y.float() - y0.float()).abs().max()),
+                      float((st - st0).abs().max()))
+            errs["ssd_scan"] = max(errs.get("ssd_scan", 0.0), err)
+            out[f"{label}_{str(dtype)[6:]}"] = err
+            absmax[label] = float(y0.float().abs().max())
+            del args, y, st, y0, st0
+    torch.cuda.empty_cache()
+    say("ssd", cases=len(out), max_abs_err=out, plain_y_absmax=absmax,
+        tol={str(k)[6:]: v for k, v in SSD_TOL.items()})
+
+
+def phase_serve():
+    """``repro_torch.launch.serve`` as a user runs it, at full width and
+    depth; returns its flash launches (27 per prefill: one shared
+    attention block after each of 27 groups)."""
+    from repro_torch.launch import serve
+    from repro_torch.obs.metrics import REGISTRY
+
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    fl = int(REGISTRY.counter("kernels.flash_attention.launches").value)
+    ss = int(REGISTRY.counter("kernels.ssd_scan.launches").value)
+    check(fl == 27, f"prefill launched flash attention {fl} times, not 27")
+    check(ss == 0, "prefill reached the SSD kernel (the reference's does not)")
+    check(out["params"] == 6_751_130_832, "not the full zamba2-7b")
+    say("serve", prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+        decode_tok_s=out["decode_tok_s"], param_gb=out["param_gb"],
+        params=out["params"], max_memory_gb=torch.cuda.max_memory_allocated()
+        / 1e9, flash_launches=fl, ssd_launches=ss,
+        sample_tokens=out["sample_tokens"])
+    return fl, out
+
+
+def zamba_full(use_pallas: bool, dtype: str = "bfloat16"):
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("zamba2-7b"), use_pallas=use_pallas,
+                               dtype=dtype)
+
+
+def zamba_params():
+    """Full zamba2-7b parameters and a B 4 x S 4096 batch, from a seed."""
+    from repro_torch import models
+
+    cfg = zamba_full(True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_params(cfg, gen, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (MODEL_B, MODEL_S),
+                                     generator=gen, device="cuda")}
+    return params, batch
+
+
+def phase_forward(params, batch, counters: dict):
+    """``forward`` at B 4, S 4096 with the kernels in bf16 (the model's
+    type), then in f32 with the kernels (use_pallas True) and with the
+    plain path (False: einsum attention, ``ssd_chunked``), same parameters
+    and tokens. The counters are zeroed just before the bf16 run and read
+    just after it; returns its (flash, ssd) launches."""
+    from repro_torch import models
+    from repro_torch.launch.serve import RULES
+    from repro_torch.models.model import logits_of
+    from repro_torch.obs.metrics import REGISTRY
+
+    res = {}
+    for key, c in (("bf16", zamba_full(True)),
+                   ("f32", zamba_full(True, "float32")),
+                   ("f32_plain", zamba_full(False, "float32"))):
+        if key == "bf16":
+            for n in counters.values():
+                REGISTRY.counter(n).reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = models.forward(c, RULES, params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if key == "bf16":
+            fl = int(REGISTRY.counter(counters["flash_attention"]).value)
+            ss = int(REGISTRY.counter(counters["ssd_scan"]).value)
+        check(h.shape == (MODEL_B, MODEL_S, c.d_model)
+              and bool(torch.isfinite(h).all()), f"forward {key}: bad hidden")
+        res[key] = dict(logits=logits_of(c, params, h[:, -1]), wall_s=wall,
+                        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        hidden=h if key != "bf16" else None)
+        del h
+    check(fl == 27 and ss == 81,
+          f"forward launched flash {fl} and SSD {ss} times, not 27 and 81")
+    k, p = res["f32"], res["f32_plain"]
+    rel_h = float((k["hidden"] - p["hidden"]).abs().max()
+                  / p["hidden"].abs().max())
+    rel_l = float((k["logits"] - p["logits"]).abs().max()
+                  / p["logits"].abs().max())
+    check(rel_h <= FORWARD_F32_RTOL and rel_l <= FORWARD_F32_RTOL,
+          f"forward f32: kernels vs plain differ by {rel_h} (hidden), "
+          f"{rel_l} (logits), relative, > {FORWARD_F32_RTOL}")
+    b = res["bf16"]["logits"]
+    say("forward", bf16_wall_s=res["bf16"]["wall_s"],
+        f32_wall_s=k["wall_s"], f32_plain_wall_s=p["wall_s"],
+        bf16_max_memory_gb=res["bf16"]["max_memory_gb"],
+        f32_max_memory_gb=k["max_memory_gb"],
+        f32_plain_max_memory_gb=p["max_memory_gb"],
+        f32_rel_hidden_diff=rel_h, f32_rel_logit_diff=rel_l,
+        f32_max_abs_logit_diff=float((k["logits"] - p["logits"]).abs().max()),
+        rtol=FORWARD_F32_RTOL,
+        f32_logit_absmax=float(p["logits"].abs().max()),
+        bf16_vs_f32_plain_max_abs_logit_diff=float(
+            (b - p["logits"]).abs().max()),
+        argmax_agree_bf16_f32_plain=float(
+            (b.argmax(-1) == p["logits"].argmax(-1)).float().mean()),
+        flash_launches=fl, ssd_launches=ss)
+    del res
+    torch.cuda.empty_cache()
+    return fl, ss
+
+
+def _busy(dev, lo=float("-inf"), hi=float("inf")):
+    """Device µs of the profiled events inside [lo, hi], and the top five
+    kernel names by device µs."""
+    win = [(n, s, e) for n, s, e in dev if s >= lo and e <= hi]
+    by_name: dict = {}
+    for n, s, e in win:
+        key = n.split("(")[0].replace("void ", "")[:60]
+        by_name[key] = by_name.get(key, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return sum(e - s for _, s, e in win), {k: round(v, 1) for k, v in top}
+
+
+def phase_serve_profile(params, batch, serve_numbers: dict):
+    """Where the serving time goes: one 4 x 4096 prefill and four greedy
+    steps under torch.profiler, the device time of each by kernel, and
+    each idle share against the unprofiled [serve] wall times."""
+    from repro_torch.launch.serve import RULES
+    from repro_torch.serve import make_prefill_step, make_serve_step
+
+    cfg = zamba_full(True)
+    prefill_step = make_prefill_step(cfg, RULES, t_max=MODEL_S + 8)
+    serve_step = make_serve_step(cfg, RULES)
+    (state, logits), dev = profiled(lambda: prefill_step(params, batch))
+    p_busy, p_top = _busy(dev)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    tok, state, _ = serve_step(params, state, tok)  # outside the window
+
+    def steps():
+        t = tok
+        for _ in range(4):
+            t, _, _ = serve_step(params, state, t)
+
+    _, dev = profiled(steps)
+    d_busy, d_top = _busy(dev)
+    prefill_wall = serve_numbers["prefill_s"] * 1e6
+    step_wall = (serve_numbers["decode_s"] / serve_numbers["decode_steps"]
+                 * 1e6)
+    say("serve_profile", prefill_device_us=round(p_busy, 1),
+        prefill_idle_share=round(1.0 - p_busy / prefill_wall, 4),
+        prefill_top_device_us=p_top,
+        decode_device_us_per_step=round(d_busy / 4, 1),
+        decode_launches_per_step=round(len(dev) / 4, 1),
+        decode_idle_share=round(1.0 - d_busy / 4 / step_wall, 4),
+        decode_top_device_us=d_top)
+
+
+def phase_model_cpu():
+    """Reduced Zamba2 in f32: the card with its kernels against the CPU
+    with the plain versions, same parameters: forward hidden, prefill
+    logits and 8 greedy decode steps."""
+    from repro_torch import models
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import RULES, generate
+
+    cfg = dataclasses.replace(reduced(get_arch("zamba2-7b")),
+                              dtype="float32", use_pallas=True)
+    cpu = models.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    card = _to(cpu, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 300),
+                         generator=torch.Generator().manual_seed(6))
+    h_card = models.forward(cfg, RULES, card, {"tokens": toks.to("cuda")}).cpu()
+    h_cpu = models.forward(cfg, RULES, cpu, {"tokens": toks})
+    g_card = generate(cfg, card, toks.to("cuda"), 9)
+    g_cpu = generate(cfg, cpu, toks, 9)
+    d_h = float((h_card - h_cpu).abs().max())
+    d_l = float((g_card["logits"].cpu() - g_cpu["logits"]).abs().max())
+    same = bool(torch.equal(g_card["tokens"].cpu(), g_cpu["tokens"]))
+    check(d_h <= MODEL_CPU_TOL and d_l <= MODEL_CPU_TOL,
+          f"card vs CPU: hidden {d_h}, logits {d_l}")
+    check(same, "card and CPU greedy tokens differ")
+    say("model_cpu", seq=int(toks.shape[1]), decode_steps=8,
+        max_abs_hidden_diff=d_h, max_abs_logit_diff=d_l, tol=MODEL_CPU_TOL,
+        tokens_equal=same)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def model_kernels(launches: dict, errs: dict):
+    """The kernels-line entries of flash attention and the SSD scan, timed
+    at Zamba2-7B's shapes in bf16 (the model's activation type)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    out, bf16 = [], torch.bfloat16
+    c = FLASH_CASES["zamba2"]
+    q, k, v = flash_inputs(c, bf16, seed=3)
+    bound, by = flash_bound(c, bf16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_TPU, launches=launches["flash_attention"],
+        max_abs_err=errs["flash_attention"],
+        ms=kernel_ms(lambda: flash_ops.flash_attention(q, k, v), 5),
+        plain_ms=cuda_ms(lambda: flash_ops.flash_attention_plain(q, k, v), 2),
+        bound_ms=bound, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 5),
+    ))
+    del q, k, v, qt, kt, vt
+    c = SSD_CASES["zamba2"]
+    args = ssd_inputs(c, bf16, seed=4)
+    bound, by = ssd_bound(c, bf16)
+    out.append(dict(
+        name="ssd_scan", route="cuda", source=SSD_SOURCE, replaces=SSD_TPU,
+        launches=launches["ssd_scan"], max_abs_err=errs["ssd_scan"],
+        ms=kernel_ms(lambda: ssd_ops.ssd_scan(*args), 5),
+        plain_ms=cuda_ms(lambda: ssd_ops.ssd_scan_plain(*args), 2),
+        bound_ms=bound, bound_by=by, library_ms=None,
+    ))
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_path(errs: dict) -> list:
+    """The model path's phases; returns its kernels-line entries."""
+    from repro_torch.obs.metrics import REGISTRY
+
+    phase_flash(errs)
+    phase_ssd(errs)
+    counters = {"flash_attention": "kernels.flash_attention.launches",
+                "ssd_scan": "kernels.ssd_scan.launches"}
+    # ---- the model path: every launch count starts at 0 before each run
+    for n in counters.values():
+        REGISTRY.counter(n).reset()
+    serve_flash, serve_numbers = phase_serve()
+    params, batch = zamba_params()
+    fwd_flash, fwd_ssd = phase_forward(params, batch, counters)
+    phase_serve_profile(params, batch, serve_numbers)
+    del params, batch
+    torch.cuda.empty_cache()
+    launches = {"flash_attention": serve_flash + fwd_flash,
+                "ssd_scan": fwd_ssd}
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the model path")
+    phase_model_cpu()
+    return model_kernels(launches, errs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers here")
@@ -619,6 +1030,9 @@ def main(argv=None) -> int:
     from repro_torch.transfer.events import materialize_jobs
 
     dev = torch.device("cuda")
+    # f32 products in full f32 (both are the defaults; stated and set)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = phase_build()
     top = default_topology()
     from repro_torch.core import Planner, PlanSpec, direct_plan
@@ -655,6 +1069,7 @@ def main(argv=None) -> int:
     kernels, shapes = phase_kernels({
         "sim": materialize_jobs(jobs), "sim_1e5": materialize_jobs(big),
     }, dev, launches, errs)
+    kernels += model_path(errs)
     line = {"kernels": kernels}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

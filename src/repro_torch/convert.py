@@ -1,10 +1,11 @@
-"""Carry planning state into the port.
+"""Carry planning and model state into the port.
 
-What the port is given is not model weights but a network and plans: a
-``Topology`` (the throughput, price and limit grids over named regions)
-and ``TransferPlan`` / ``MulticastPlan`` allocations on it, with the jobs
-and scripted faults a simulation runs. This module moves them across as
-plain state: numpy arrays, region keys and scalars.
+For transfers the port is given a network and plans: a ``Topology`` (the
+throughput, price and limit grids over named regions) and
+``TransferPlan`` / ``MulticastPlan`` allocations on it, with the jobs and
+scripted faults a simulation runs. For models it is given a parameter tree
+and a decode state. This module moves them across as plain state: numpy
+arrays, region keys and scalars.
 
 ``*_state`` functions read any object with the reference's attribute
 names (the reference package's objects or the port's) and return plain
@@ -15,9 +16,11 @@ them. Nothing here imports the reference package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.plan import MulticastPlan, TransferPlan
 from .core.topology import Region, Topology
+from .device import resolve_device
 from .transfer import events
 
 _GRIDS = ("tput", "price_egress", "price_vm", "limit_ingress", "limit_egress")
@@ -135,3 +138,60 @@ def to_port_faults(faults) -> list:
         fields = cls.__dataclass_fields__
         out.append(cls(**{k: getattr(f, k) for k in fields}))
     return out
+
+
+# ------------------------------------------------------------ model state
+def params_state(tree) -> dict:
+    """A parameter tree or a decode state (nested dicts of arrays, the
+    reference's pytree or the port's) flattened to numpy arrays under
+    dotted keys such as ``"decoder.ssm_blocks.ssm.in_proj"``. The port
+    keeps the reference's layouts (``wq`` [D,H,Dh], stacked [groups, per,
+    ...] leaves), so the conversion is leaf for leaf, with no
+    transposes."""
+    out: dict = {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{prefix}.{k}" if prefix else k)
+        elif isinstance(t, torch.Tensor):
+            out[prefix] = (t.detach().float().cpu().numpy()
+                           if t.dtype == torch.bfloat16
+                           else t.detach().cpu().numpy())
+        else:
+            out[prefix] = np.asarray(t)
+    walk(tree, "")
+    return out
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> a torch copy on ``device`` (never a view: the port updates
+    decode caches in place, and the array may be another framework's
+    buffer); bfloat16 (ml_dtypes) through float32, which holds every
+    bfloat16 value exactly."""
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device,
+                            dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def params_from_state(state: dict, device=None) -> dict:
+    """The port's parameter tree from ``params_state`` output, on
+    ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
+    tree: dict = {}
+    for key, a in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = _tensor(np.asarray(a), device)
+    return tree
+
+
+def decode_state_from_state(st: dict, device=None) -> dict:
+    """The port's decode state from ``params_state`` of a decode state:
+    caches as tensors, ``pos`` a 0-d int32 tensor."""
+    state = params_from_state(st, device)
+    state["pos"] = state["pos"].to(torch.int32).reshape(())
+    return state

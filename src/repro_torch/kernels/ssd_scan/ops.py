@@ -1,0 +1,116 @@
+"""Public SSD wrapper in the model layout ([B,S,H,P]).
+
+``ssd_scan`` pads a ragged tail with ``dt = 0`` (zero step size leaves the
+recurrence unchanged), as the reference does
+(``repro/kernels/ssd_scan/ops.py:17-36``), then takes the plain version
+(``ref.py``) for tensors on the CPU and launches the CUDA kernel
+(``csrc/ssd_scan.cu``) for tensors on the card; there is no other route
+and no fallback. The kernel reads the model layout as it is. Each launch
+adds one to ``kernels.ssd_scan.launches`` in the port's metrics registry;
+CPU calls do not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.obs.metrics import REGISTRY
+
+from ..nvcc import BASE_FLAGS, Library
+from . import ref
+
+_launches = REGISTRY.counter("kernels.ssd_scan.launches")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.ssd_scan_fwd.restype = i
+
+
+LIBRARY = Library(
+    Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu", BASE_FLAGS,
+    _declare,
+)
+
+
+def _kernel(xh, dtv, a, bm, cm, *, chunk: int):
+    """The CUDA kernel on card tensors in the model layout, S a multiple
+    of ``chunk``."""
+    b, s, h, p = xh.shape
+    n = bm.shape[-1]
+    if xh.dtype not in _DTYPES:
+        raise TypeError(f"no SSD kernel for dtype {xh.dtype}")
+    if bm.dtype != xh.dtype or cm.dtype != xh.dtype:
+        raise TypeError("B and C must have x's dtype")
+    if bm.shape != (b, s, n) or cm.shape != (b, s, n):
+        raise ValueError("B and C must be [batch, seq, state]")
+    if dtv.shape != (b, s, h) or a.shape != (h,):
+        raise ValueError("dt must be [batch, seq, heads] and a [heads]")
+    if chunk > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(
+            f"chunk {chunk}, head dim {p}, state {n} above the kernel's "
+            f"{MAX_CHUNK}, {MAX_HEAD_DIM}, {MAX_STATE}"
+        )
+    for t in (dtv, a, bm, cm):
+        if t.device != xh.device:
+            raise ValueError("every operand must be on x's device")
+    xh, bm, cm = xh.contiguous(), bm.contiguous(), cm.contiguous()
+    dtv = dtv.to(torch.float32).contiguous()
+    a = a.to(torch.float32).contiguous()
+    y = torch.empty_like(xh)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=xh.device)
+    rc = LIBRARY.load().ssd_scan_fwd(
+        xh.data_ptr(), dtv.data_ptr(), a.data_ptr(), bm.data_ptr(),
+        cm.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[xh.dtype],
+        b, s, h, p, n, chunk, torch.cuda.current_stream(xh.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"SSD scan launch failed: CUDA error {rc}")
+    _launches.inc()
+    return y, state
+
+
+def _plain(xh, dtv, a, bm, cm, *, chunk: int):
+    y, state = ref.ssd_scan_bhsp_ref(
+        xh.movedim(2, 1), dtv.movedim(2, 1), a, bm, cm, chunk=chunk
+    )
+    return y.movedim(1, 2), state
+
+
+def _padded(fn, xh, dtv, a, bm, cm, *, chunk: int):
+    """``fn`` on inputs padded with dt = 0 to the chunk grid, y cut back."""
+    s_orig = xh.shape[1]
+    chunk = min(chunk, s_orig)
+    pad = (-s_orig) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dtv = F.pad(dtv, (0, 0, 0, pad))
+        bm, cm = F.pad(bm, (0, 0, 0, pad)), F.pad(cm, (0, 0, 0, pad))
+    y, state = fn(xh, dtv, a, bm, cm, chunk=chunk)
+    return (y[:, :s_orig] if pad else y), state
+
+
+def ssd_scan(xh, dtv, a, bm, cm, *, chunk: int = 256):
+    """Model layout: xh [B,S,H,P], dtv [B,S,H], a [H], bm/cm [B,S,N]
+    -> (y [B,S,H,P] in x's type, final_state [B,H,P,N] f32): the plain
+    version on the CPU, the CUDA kernel on the card."""
+    if xh.device.type == "cpu":
+        fn = _plain
+    elif xh.device.type == "cuda":
+        fn = _kernel
+    else:
+        raise ValueError(f"no SSD kernel for device {xh.device}")
+    return _padded(fn, xh, dtv, a, bm, cm, chunk=chunk)
+
+
+def ssd_scan_plain(xh, dtv, a, bm, cm, *, chunk: int = 256):
+    """What ``ssd_scan`` computes, by the plain version on any device: the
+    yardstick the kernel is held against on the card."""
+    return _padded(_plain, xh, dtv, a, bm, cm, chunk=chunk)

@@ -1,0 +1,166 @@
+"""Top-level model API: params, forward, prefill, decode (the port of
+``repro/models/model.py``; ``loss_fn`` and training wait for ROADMAP
+Queue 1 #9).
+
+``batch`` dict convention:
+  tokens  [B, S] integer   — decoder token ids
+
+Decode state convention (threaded through serve_step):
+  {"pos": 0-d int32 tensor, "kv": {...}, "ssm": {...}}
+``decode_step`` updates the state's caches IN PLACE: the KV buffers and SSM
+states are the largest tensors of serving, and a copy per token would
+double them. The caller's state dict is left with the new caches and the
+returned state shares them.
+
+Every function here runs under ``torch.inference_mode()``: no gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.sharding.specs import ShardingRules
+from . import params as P
+from .layers import embed, embed_defs, rmsnorm, rmsnorm_def, unembed_matrix
+from .transformer import run_stack, stack_defs
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ------------------------------------------------------------------ params
+def abstract_params(cfg: ModelConfig) -> dict:
+    return {
+        "embed": embed_defs(cfg),
+        "decoder": stack_defs(cfg),
+        "final_norm": rmsnorm_def(cfg.d_model),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Parameters drawn from ``generator``, on ``device`` (the card unless
+    the caller names another; raises with no card and no device)."""
+    with torch.inference_mode():
+        return P.materialize(abstract_params(cfg), generator, device)
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameters; ``active_only`` matters only for MoE, which is not
+    ported yet (``abstract_params`` raises for it)."""
+    return P.count(abstract_params(cfg))
+
+
+# ----------------------------------------------------------------- forward
+def _positions(tokens):
+    s = tokens.shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
+    return pos.expand(tokens.shape)
+
+
+@torch.inference_mode()
+def forward(cfg: ModelConfig, rules: ShardingRules, params, batch):
+    """Forward to the final norm, no gradient. Returns hidden [B, S, D]."""
+    dt = _dtype(cfg)
+    x = embed(cfg, rules, params["embed"], batch["tokens"], dt)
+    h, _ = run_stack(cfg, rules, params["decoder"], x,
+                     _positions(batch["tokens"]), mode="train")
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def logits_of(cfg: ModelConfig, params, h):
+    """f32 logits of hidden rows h [..., D] against the unembedding in the
+    activation type (products summed in f32)."""
+    w = unembed_matrix(cfg, params["embed"], _dtype(cfg))
+    return h.float() @ w.float()
+
+
+# ------------------------------------------------------------------ serving
+def _attn_cache_layers(cfg: ModelConfig) -> tuple[int, ...]:
+    """Leading stack dims of the KV cache for this family."""
+    groups, _ = cfg.scan_groups()
+    if cfg.is_hybrid:
+        return (groups,)
+    if cfg.is_ssm:
+        return ()
+    return (cfg.num_layers,)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
+                      dtype=None, device=None) -> dict:
+    """Zero caches sized for a context of ``seq_len`` tokens, on ``device``
+    (the card unless the caller names another)."""
+    device = resolve_device(device)
+    dt = dtype or _dtype(cfg)
+    state: dict = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    lead = _attn_cache_layers(cfg)
+    if lead:
+        kv_len = seq_len
+        if cfg.sliding_window is not None:
+            kv_len = min(seq_len, cfg.sliding_window)  # SWA ring buffer
+        kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        shape = lead + (batch, kv_len, kv, dh)
+        state["kv"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.ssm is not None:
+        groups, per = cfg.scan_groups()
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        heads = d_inner // s.head_dim
+        conv_dim = d_inner + 2 * s.d_state
+        ssm_lead = (groups, per) if cfg.is_hybrid else (cfg.num_layers,)
+        state["ssm"] = {
+            "conv": torch.zeros(ssm_lead + (batch, s.d_conv - 1, conv_dim),
+                                dtype=dt, device=device),
+            "state": torch.zeros(
+                ssm_lead + (batch, heads, s.head_dim, s.d_state), dtype=dt,
+                device=device),
+        }
+    return state
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, rules: ShardingRules, params, batch, *,
+            t_max: int | None = None):
+    """Run the full prompt, build decode caches. Returns (state, last_logits)."""
+    dt = _dtype(cfg)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    t_max = t_max or s
+    x = embed(cfg, rules, params["embed"], tokens, dt)
+    h, caches = run_stack(cfg, rules, params["decoder"], x, _positions(tokens),
+                          mode="prefill", t_max=t_max)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    last_logits = logits_of(cfg, params, h[:, -1])
+    state: dict = {"pos": torch.tensor(s, dtype=torch.int32,
+                                       device=tokens.device)}
+    state.update(caches or {})
+    return state, last_logits
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, rules: ShardingRules, params, state,
+                tokens):
+    """One decode step. tokens: [B, 1] -> (logits [B, V], new state); the
+    caches are updated in place (module docstring)."""
+    dt = _dtype(cfg)
+    pos = state["pos"]
+    x = embed(cfg, rules, params["embed"], tokens, dt)
+    positions = pos.reshape(1, 1).expand(tokens.shape).to(torch.int32)
+    cache = {k: state[k] for k in ("kv", "ssm") if k in state}
+    kv_pos = pos
+    if cfg.sliding_window is not None and "kv" in state:
+        kv_len = state["kv"]["k"].shape[-3]
+        kv_pos = pos if kv_len < cfg.sliding_window else pos % kv_len
+    h, new_caches = run_stack(cfg, rules, params["decoder"], x, positions,
+                              mode="decode", state=cache, cache_len=kv_pos,
+                              seen_len=pos)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = logits_of(cfg, params, h[:, 0])
+    new_state = dict(state)
+    new_state.update(new_caches or {})
+    new_state["pos"] = pos + 1
+    return logits, new_state

@@ -1,0 +1,34 @@
+"""Serving steps: prefill (prompt -> caches) and serve_step (one new token
+against a KV/SSM state), the port of ``repro/serve/serve_step.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decode_step, prefill
+from repro_torch.sharding.specs import ShardingRules
+
+
+def make_prefill_step(cfg: ModelConfig, rules: ShardingRules, *, t_max: int):
+    def prefill_step(params, batch):
+        return prefill(cfg, rules, params, batch, t_max=t_max)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, rules: ShardingRules, *,
+                    greedy: bool = True):
+    """serve_step(params, state, tokens[B,1]) -> (next_tokens[B,1], state,
+    logits[B,V]); the state's caches are updated in place. Only greedy
+    decoding exists, as in the reference."""
+    if not greedy:
+        raise NotImplementedError("only greedy decoding is implemented")
+
+    def serve_step(params, state, tokens):
+        logits, state = decode_step(cfg, rules, params, state, tokens)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return nxt, state, logits
+
+    return serve_step

@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA card: a CUDA
+kernel has no CPU mode. The file imports no jax and nothing of the
+reference package, so it runs on a card's machine that has neither:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
+
+The CPU tests (``test_torch_waterfill``, ``test_torch_flash_attention``,
+``test_torch_ssd_scan``) hold the same plain versions against the
+reference; the tolerances here are theirs.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.waterfill import ops as wf_ops
+from repro_torch.obs.metrics import REGISTRY
+
+from test_torch_cases import qkv, ssd_inputs, waterfill_case
+
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_edges", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_cuda_kernels_match_plain_versions(seed, with_edges):
+    _need_card()
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = waterfill_case(
+        seed, with_edges=with_edges
+    )
+    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        args = [
+            torch.as_tensor(caps, dtype=dtype),
+            torch.as_tensor(src, dtype=torch.int32),
+            torch.as_tensor(dst, dtype=torch.int32),
+            torch.as_tensor(eg, dtype=dtype), torch.as_tensor(inn, dtype=dtype),
+            None if ed is None else torch.as_tensor(eid, dtype=torch.int32),
+            None if ed is None else torch.as_tensor(ed, dtype=dtype),
+            torch.as_tensor(active),
+        ]
+        plain = wf_ops.waterfill_rates(*args, precision=precision)
+        count = REGISTRY.counter(f"kernels.waterfill_{precision}.launches")
+        n0 = count.value
+        got = wf_ops.waterfill_rates(
+            *[None if a is None else a.cuda() for a in args],
+            precision=precision,
+        ).cpu()
+        assert count.value == n0 + 1
+        if precision == "f64":
+            assert torch.equal(got, plain)
+        else:
+            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,d,window",
+    [(1, 128, 2, 2, 32, None), (2, 256, 4, 2, 64, None),
+     (1, 192, 6, 2, 16, None), (1, 300, 4, 2, 112, None),
+     (1, 256, 2, 2, 192, 200), (1, 256, 2, 2, 32, 64)],
+)
+def test_flash_kernel_matches_plain_version(dtype, b, s, h, kv, d, window):
+    _need_card()
+    q, k, v = (torch.tensor(a).to(_TORCH[dtype])
+               for a in qkv(3, b, s, h, kv, d))
+    count = REGISTRY.counter("kernels.flash_attention.launches")
+    n0 = count.value
+    got = flash_ops.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                    window=window)
+    torch.cuda.synchronize()
+    assert count.value == n0 + 1
+    want = flash_ops.flash_attention_plain(q, k, v, window=window)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,h,s,p,n,q",
+    [(1, 2, 64, 16, 16, 16), (2, 3, 128, 16, 32, 32), (1, 4, 256, 32, 64, 64),
+     (1, 4, 512, 64, 128, 256), (2, 5, 100, 16, 16, 16)],
+)
+def test_ssd_kernel_matches_plain_version(dtype, b, h, s, p, n, q):
+    _need_card()
+    td = _TORCH[dtype]
+    x, dt, a, bm, cm = (torch.tensor(t) for t in ssd_inputs(
+        7, b, h, s, p, n, layout="bshp"))
+    args = (x.to(td), dt, a, bm.to(td), cm.to(td))
+    count = REGISTRY.counter("kernels.ssd_scan.launches")
+    n0 = count.value
+    y, state = ssd_ops.ssd_scan(*(t.cuda() for t in args), chunk=q)
+    torch.cuda.synchronize()
+    assert count.value == n0 + 1
+    y_want, s_want = ssd_ops.ssd_scan_plain(*args, chunk=q)
+    tol = 1e-3 if dtype == "float32" else 1e-1
+    torch.testing.assert_close(y.cpu().float(), y_want.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(state.cpu(), s_want, atol=tol, rtol=tol)

@@ -36,6 +36,20 @@ def test_port_files_exist():
     assert all(p.exists() for p in FILES)
 
 
+@pytest.mark.parametrize("module", [
+    "configs/base.py", "configs/archs.py", "configs/shapes.py",
+    "sharding/specs.py", "models/params.py", "models/layers.py",
+    "models/attention.py", "models/ssm.py", "models/transformer.py",
+    "models/model.py", "serve/serve_step.py", "launch/serve.py",
+    "kernels/nvcc.py", "kernels/flash_attention/ops.py",
+    "kernels/flash_attention/ref.py", "kernels/ssd_scan/ops.py",
+    "kernels/ssd_scan/ref.py",
+])
+def test_model_path_modules_are_checked(module):
+    """The model path's modules are among the files checked below."""
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]

@@ -9,8 +9,8 @@ kernels.waterfill.ref``); these tests hold them against the reference:
   * the f32 rounds match the reference's Pallas kernel (interpret mode on
     the CPU) at the f32 tolerance the reference's own kernel test uses.
 
-The CUDA kernel itself runs only on the card (``gpu`` marker), where it is
-held against these plain versions.
+The CUDA kernels themselves run only on the card, held against these plain
+versions by ``tests/test_torch_cuda_kernels.py`` (``gpu`` marker).
 """
 
 from __future__ import annotations
@@ -27,28 +27,7 @@ from repro.transfer.flowsim import _maxmin_rates_arr
 from repro_torch.kernels.waterfill import ops, ref
 from repro_torch.obs.metrics import REGISTRY
 
-
-def _case(seed, *, with_edges):
-    """A padded max-min scenario: nc live lanes scattered across ncp slots,
-    junk caps in the dead lanes (the mask must neutralize them)."""
-    rng = np.random.default_rng(seed)
-    nv = int(rng.integers(2, 10))
-    nc = int(rng.integers(1, 40))
-    ncp = nc + int(rng.integers(0, 17))
-    active = np.zeros(ncp, dtype=bool)
-    active[rng.permutation(ncp)[:nc]] = True
-    caps = np.where(active, rng.uniform(0.5, 8.0, ncp), 123.0)
-    src = rng.integers(0, nv, ncp)
-    dst = rng.integers(0, nv, ncp)
-    eg = rng.uniform(1.0, 12.0, nv)
-    inn = rng.uniform(1.0, 12.0, nv)
-    if with_edges:
-        ne = int(rng.integers(1, 5))
-        eid = rng.integers(0, ne, ncp)
-        ed = rng.uniform(2.0, 20.0, ne)
-    else:
-        ne, eid, ed = 0, np.zeros(ncp, dtype=np.int64), None
-    return caps, src, dst, eg, inn, eid, ed, active, nv, ne
+from test_torch_cases import waterfill_case as _case
 
 
 def _port_rates(case, precision, **kw):
@@ -161,36 +140,3 @@ def test_no_kernel_and_no_fallback_off_cpu_and_cuda():
         ops.waterfill_rates(z, i, i, z, z)
     with pytest.raises(ValueError):
         ops.segment_sum_ordered(z.double(), i, 2)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("with_edges", [False, True])
-@pytest.mark.parametrize("seed", range(4))
-def test_cuda_kernels_match_plain_versions(seed, with_edges):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    caps, src, dst, eg, inn, eid, ed, active, nv, ne = _case(
-        seed, with_edges=with_edges
-    )
-    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
-        args = [
-            torch.as_tensor(caps, dtype=dtype),
-            torch.as_tensor(src, dtype=torch.int32),
-            torch.as_tensor(dst, dtype=torch.int32),
-            torch.as_tensor(eg, dtype=dtype), torch.as_tensor(inn, dtype=dtype),
-            None if ed is None else torch.as_tensor(eid, dtype=torch.int32),
-            None if ed is None else torch.as_tensor(ed, dtype=dtype),
-            torch.as_tensor(active),
-        ]
-        plain = ops.waterfill_rates(*args, precision=precision)
-        count = REGISTRY.counter(f"kernels.waterfill_{precision}.launches")
-        n0 = count.value
-        got = ops.waterfill_rates(
-            *[None if a is None else a.cuda() for a in args],
-            precision=precision,
-        ).cpu()
-        assert count.value == n0 + 1
-        if precision == "f64":
-            assert torch.equal(got, plain)
-        else:
-            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
