@@ -14,9 +14,18 @@ shapes and others, then ``zamba2-7b`` at full width and depth (6.75e9 f32
 parameters from a seed): served through ``repro_torch.launch.serve`` (a
 4 x 4096 prefill, then greedy decode), its ``forward`` with the kernels
 against the plain path, and a reduced copy on the card against the CPU.
-Each phase prints one line; the line before the last lists every kernel
-with its launches on the main paths, its error against its plain version,
-its time and its bound; the last line is the device summary. Any failed
+The training path comes last: the int8 quantize and dequantize kernels
+bit for bit against their plain versions at every gradient leaf of
+``smollm-135m`` and at ragged, zero, tie, bf16 and NaN inputs; then
+``smollm-135m`` at full width and depth (1.345e8 f32 parameters from a
+seed) trained by the port's ``Trainer`` as ``launch/train.py`` builds
+it, 30 steps of 8 x 2048 tokens with every gradient leaf through the
+kernels and a restart from the step-10 checkpoint after a failure
+injected at step 17; error feedback over its real gradients; and a
+smaller trainer on the card against the CPU. Each phase prints one
+line; the line before the last lists every kernel with its launches on
+the main paths, its error against its plain version, its time and its
+bound; the last line is the device summary. Any failed
 check raises, and the script then exits non-zero without the summary. It
 exits non-zero at once where there is no CUDA card.
 """
@@ -84,6 +93,26 @@ MODEL_B, MODEL_S = 4, 4096
 FORWARD_F32_RTOL = 1e-2
 # [model_cpu]: f32 card (kernels, cuBLAS f32) against CPU (plain versions)
 MODEL_CPU_TOL = 1e-3
+QUANT_SOURCE = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
+QUANT_TPU = "src/repro/kernels/quantize/quantize.py:19"
+DEQUANT_TPU = "src/repro/kernels/quantize/quantize.py:28"
+QUANT_BLOCK = 256
+# the quantize kernels' times in the kernels line are for one training
+# step's gradient: one launch per leaf
+QUANT_WORK = "one smollm-135m gradient: one launch per leaf (11 leaves)"
+# [train]: launch/train.py's smollm-135m at scale 1.0, batch 8 x 2048
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "smollm-135m", 8, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 30, 10, 17
+# [train_cpu]: scale 0.25 in f32, card against CPU. Losses and the first
+# step's f32 gradients differ only in summation order. The parameters go
+# through int8 codes and AdamW, whose step m/(sqrt(v) + eps) is at most
+# ~1.001 lr per entry over 3 steps (a weighted mean over a weighted root
+# mean square): order noise that flips a code or the sign of a near-zero
+# gradient moves an entry by up to that, whatever the gradient's size, so
+# the two runs' parameters may be up to 2 x 1.001 x sum(lr) apart per
+# entry, and no further
+TRAIN_CPU_STEPS, TRAIN_CPU_B, TRAIN_CPU_S = 3, 4, 512
+TRAIN_CPU_TOL = {"loss": 1e-4, "grads": 1e-3, "adam_steps": 2.01}
 
 
 def say(phase: str, **fields) -> None:
@@ -265,10 +294,12 @@ def live_rounds(args: dict, precision: str) -> int:
 def phase_build():
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.quantize import ops as quant_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.waterfill import build
 
-    libs = [build.LIBRARY, flash_ops.LIBRARY, ssd_ops.LIBRARY]
+    libs = [build.LIBRARY, flash_ops.LIBRARY, ssd_ops.LIBRARY,
+            quant_ops.LIBRARY]
     t0 = time.perf_counter()
     nvcc.build_all(libs)
     seconds = time.perf_counter() - t0
@@ -1017,6 +1048,505 @@ def model_path(errs: dict) -> list:
     return model_kernels(launches, errs)
 
 
+# ------------------------------------------------------------- train path
+def train_cfg(scale: float = 1.0, dtype: str = "bfloat16"):
+    """``launch/train.py``'s config: ``scaled_config(arch, scale)`` with
+    the loss chunk cut to the sequence, in ``dtype``."""
+    from repro_torch.launch.train import scaled_config
+
+    cfg = scaled_config(TRAIN_ARCH, scale)
+    return dataclasses.replace(cfg, dtype=dtype,
+                               loss_chunk=min(cfg.loss_chunk, TRAIN_S))
+
+
+def train_opt(steps: int):
+    """``launch/train.py``'s optimizer for a run of ``steps`` steps."""
+    from repro_torch.train.optimizer import OptConfig
+
+    return OptConfig(warmup_steps=max(steps // 20, 5), total_steps=steps)
+
+
+def compress_hook(record: dict | None = None):
+    """Every gradient leaf through ``compress(..., use_pallas=True)``: the
+    quantize and dequantize kernels on the card. ``record`` keeps the
+    last gradient tree the hook was given."""
+    from repro_torch.transfer.compression import compress
+    from repro_torch.tree import tree_map
+
+    def hook(grads):
+        if record is not None:
+            record["grads"] = grads
+        return tree_map(lambda t: compress(t, use_pallas=True), grads)
+
+    return hook
+
+
+def gradient_like(shapes: dict, seed: int) -> dict:
+    """Seeded normal values on the card at the given leaf shapes, with the
+    spread of a gradient (std 1e-3)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randn(s, generator=g, device="cuda") * 1e-3
+            for k, s in shapes.items()}
+
+
+def grad_shapes() -> dict:
+    """Every parameter leaf of the full config: the gradient the hook gets
+    each step."""
+    from repro_torch.models import abstract_params
+    from repro_torch.models.params import leaves
+
+    return {k: pd.shape for k, pd in leaves(abstract_params(train_cfg()))}
+
+
+def quant_bounds(sizes: list[int]) -> dict:
+    """Least times for one step's compression: quantize reads 4n bytes and
+    writes n + 4 n_blocks, dequantize the reverse; ~6 and 2 f32 vector
+    operations per value."""
+    nb = sum(-(-n // QUANT_BLOCK) for n in sizes)
+    n = sum(sizes)
+    out = {}
+    for name, nbytes, ops in (("quantize_int8", 5 * n + 4 * nb, 6 * n),
+                              ("dequantize_int8", 5 * n + 4 * nb, 2 * n)):
+        t_b, t_o = nbytes / HBM_BYTES_S, ops / PEAK_OPS["f32"]
+        out[name] = (max(t_b, t_o) * 1e3,
+                     "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def _same_quant(x, block: int, label: str, errs: dict) -> None:
+    """Kernel against plain version on the card: q, scales and the
+    dequantized values bit for bit (q and its values where x is finite:
+    the int8 code of a NaN is outside the contract)."""
+    from repro_torch.kernels.quantize import ops
+
+    q, s = ops.quantize_int8(x, block=block)
+    q0, s0 = ops.quantize_int8_plain(x, block=block)
+    back = ops.dequantize_int8(q, s, block=block)
+    back0 = ops.dequantize_int8_plain(q0, s0, block=block)
+    finite = torch.isfinite(x)
+    dq = float((q.int() - q0.int())[finite].abs().max())
+    ds = float((s - s0).abs().max())
+    dback = float((back - back0)[finite].abs().max())
+    errs["quantize_int8"] = max(errs.get("quantize_int8", 0.0), dq, ds)
+    errs["dequantize_int8"] = max(errs.get("dequantize_int8", 0.0), dback)
+    check(torch.equal(s, s0), f"quantize {label}: scales differ ({ds})")
+    check(torch.equal(q[finite], q0[finite]),
+          f"quantize {label}: q differs ({dq})")
+    check(torch.equal(back[finite], back0[finite]),
+          f"dequantize {label}: differs ({dback})")
+
+
+def phase_quantize(errs: dict) -> dict:
+    """The quantize and dequantize kernels against their plain versions
+    on the card, bit for bit: every gradient leaf of the full smollm-135m,
+    ragged lengths, an all-zero block, half-way ties, bf16 input and a
+    NaN block; then their device time for one step's gradient (one launch
+    per leaf) beside the bound, the plain versions and, for dequantize,
+    ``torch.mul`` of the int8 blocks by their scales. Returns the kernels'
+    numbers for the kernels line."""
+    from repro_torch.kernels.quantize import ops
+
+    shapes = grad_shapes()
+    grads = gradient_like(shapes, seed=8)
+    for k, x in grads.items():
+        _same_quant(x, QUANT_BLOCK, k, errs)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    ragged = torch.randn(1000, generator=g, device="cuda")
+    _same_quant(ragged, QUANT_BLOCK, "n=1000", errs)
+    _same_quant(ragged[:7], 4, "n=7 block 4", errs)
+    zero = torch.zeros(3 * QUANT_BLOCK, device="cuda")
+    zero[2 * QUANT_BLOCK:] = ragged[:QUANT_BLOCK]
+    _same_quant(zero, QUANT_BLOCK, "zero block", errs)
+    q, s = ops.quantize_int8(zero)
+    check(float(s[0]) == 1.0 and int(q[:QUANT_BLOCK].abs().max()) == 0,
+          "an all-zero block must have scale 1 and q 0")
+    ties = torch.empty(QUANT_BLOCK, device="cuda").uniform_(-100, 100,
+                                                            generator=g)
+    ties[:9] = torch.tensor([2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5, -1.5,
+                             127.0])
+    _same_quant(ties, QUANT_BLOCK, "ties", errs)
+    q, s = ops.quantize_int8(ties)
+    check(float(s[0]) == 1.0 and q[:9].tolist()
+          == [2, -2, 4, -4, 0, 0, 2, -2, 127],
+          f"ties must round half to even, got {q[:9].tolist()}")
+    embed = next(iter(grads.values()))
+    _same_quant(embed.to(torch.bfloat16), QUANT_BLOCK, "bf16", errs)
+    nan = ragged.clone()
+    nan[300] = float("nan")
+    _same_quant(nan, QUANT_BLOCK, "NaN block", errs)
+    q, s = ops.quantize_int8(nan)
+    check(float(s[1]) == 1.0, "a NaN block's scale must be 1.0, as the "
+          "plain version's (NaN > 0 is false)")
+
+    xs = list(grads.values())
+    qs = [ops.quantize_int8(x) for x in xs]
+    q2d = [torch.nn.functional.pad(q.reshape(-1), (0, (-q.numel())
+                                                   % QUANT_BLOCK))
+           .reshape(-1, QUANT_BLOCK) for q, _ in qs]
+    s2d = [s[:, None] for _, s in qs]
+    bounds = quant_bounds([x.numel() for x in xs])
+    out = {
+        "quantize_int8": dict(
+            ms=kernel_ms(lambda: [ops.quantize_int8(x) for x in xs], 20),
+            plain_ms=cuda_ms(
+                lambda: [ops.quantize_int8_plain(x) for x in xs], 5),
+            library_ms=None),
+        "dequantize_int8": dict(
+            ms=kernel_ms(lambda: [ops.dequantize_int8(q, s)
+                                  for q, s in qs], 20),
+            plain_ms=cuda_ms(lambda: [ops.dequantize_int8_plain(q, s)
+                                      for q, s in qs], 5),
+            library_ms=cuda_ms(lambda: [torch.mul(a, b)
+                                        for a, b in zip(q2d, s2d)], 20)),
+    }
+    for name, (bound, by) in bounds.items():
+        out[name].update(bound_ms=bound, bound_by=by)
+    sizes = {k: int(x.numel()) for k, x in grads.items()}
+    say("quantize", leaves=len(sizes), values=sum(sizes.values()),
+        bitwise=True, max_abs_err={k: errs[k] for k in out},
+        step_ms={k: v["ms"] for k, v in out.items()},
+        ms_per_launch={k: v["ms"] / len(xs) for k, v in out.items()},
+        plain_ms={k: v["plain_ms"] for k, v in out.items()},
+        bound_ms={k: v["bound_ms"] for k, v in out.items()},
+        library_ms=out["dequantize_int8"]["library_ms"],
+        embed_ms=kernel_ms(lambda: ops.quantize_int8(embed), 20))
+    del grads, xs, qs, q2d, s2d, embed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _snapshot(tree) -> list:
+    from repro_torch.tree import tree_leaves
+
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def recorded_trainer(cfg, tcfg, **kw):
+    """A ``Trainer`` that also keeps host copies of the state it saves at
+    the first checkpoint and of every state it restores, and the seconds
+    of each checkpoint write."""
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.train.trainer import Trainer
+
+    class Recorded(Trainer):
+        def _restore_or_init(self):
+            params, opt, step = super()._restore_or_init()
+            if step:
+                self.restored[step] = _snapshot({"params": params,
+                                                 "opt": opt})
+            return params, opt, step
+
+    tr = Recorded(cfg, tcfg, **kw)
+    tr.saved, tr.restored, tr.write_s = {}, {}, []
+    save_async = tr.ckpt.save_async
+
+    def save(step, tree, *, extra=None):
+        if step == tcfg.ckpt_every and step not in tr.saved:
+            tr.saved[step] = _snapshot(tree)
+        save_async(step, tree, extra=extra)
+
+    tr.ckpt.save_async = save
+    write = ckpt_mod.save_checkpoint
+
+    def timed_write(*a, **k):
+        t0 = time.perf_counter()
+        out = write(*a, **k)
+        tr.write_s.append(time.perf_counter() - t0)
+        return out
+
+    ckpt_mod.save_checkpoint = timed_write
+    tr.unpatch = lambda: setattr(ckpt_mod, "save_checkpoint", write)
+    return tr
+
+
+def _by_step(metrics_log: list) -> dict:
+    """The loss of each step; a step redone after the restart keeps the
+    redone value."""
+    return {int(m["step"]): m["loss"] for m in metrics_log}
+
+
+def phase_train(workdir: Path, counters: dict) -> dict:
+    """smollm-135m at full width and depth, trained by the port's
+    ``Trainer`` as ``launch/train.py`` builds it (bf16 compute, remat
+    "full", batch 8 x 2048, loss chunk 512), with every gradient leaf
+    through the int8 kernels, 30 steps, checkpoints every 10 and an
+    injected failure at step 17. The kernels' launch counts are zeroed
+    just before the run and read just after. Then 5 steps without the
+    hook. Returns the numbers and the last gradient tree."""
+    from repro_torch.models import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = train_cfg()
+    check(cfg.num_layers == 30 and cfg.d_model == 576
+          and cfg.vocab_size == 49_152 and cfg.remat
+          and cfg.remat_policy == "full" and cfg.loss_chunk == 512
+          and not cfg.use_pallas, f"not the full smollm-135m: {cfg}")
+    n_params = count_params(cfg)
+    record: dict = {}
+    fail = {TRAIN_FAIL_AT}
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, global_batch=TRAIN_B,
+                         seq_len=TRAIN_S, ckpt_every=TRAIN_CKPT_EVERY,
+                         ckpt_dir=str(workdir / "train"), log_every=1)
+    for n in counters.values():
+        REGISTRY.counter(n).reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = recorded_trainer(
+        cfg, tcfg, opt_cfg=train_opt(TRAIN_STEPS),
+        grad_transform=compress_hook(record),
+        failure_injector=lambda s: s in fail and not fail.discard(s))
+    try:
+        res = tr.run()
+    finally:
+        tr.unpatch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(REGISTRY.counter(n).value)
+                for k, n in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_run = len(res["metrics"])
+    n_leaves = len(tree_leaves(record["grads"]))
+    losses = _by_step(res["metrics"])
+    restarts, final_step = res["restarts"], res["final_step"]
+    check(restarts == 1 and final_step == TRAIN_STEPS,
+          f"restarts {restarts}, final step {final_step}")
+    check(sorted(tr.restored) == [TRAIN_CKPT_EVERY],
+          f"restored from {sorted(tr.restored)}, not step "
+          f"{TRAIN_CKPT_EVERY}")
+    saved, restored = tr.saved[TRAIN_CKPT_EVERY], tr.restored[
+        TRAIN_CKPT_EVERY]
+    check(len(saved) == len(restored) and all(
+        torch.equal(a, b) for a, b in zip(saved, restored)),
+        "the restored checkpoint differs from the saved state")
+    del saved, restored, tr.saved, tr.restored
+    check(steps_run == TRAIN_STEPS + TRAIN_FAIL_AT - TRAIN_CKPT_EVERY,
+          f"{steps_run} steps run")
+    q = TRAIN_STEPS // 4
+    first = float(np.mean([losses[s] for s in range(1, q + 1)]))
+    last = float(np.mean([losses[s] for s in range(TRAIN_STEPS - q + 1,
+                                                   TRAIN_STEPS + 1)]))
+    check(all(np.isfinite(list(losses.values()))), "a loss is not finite")
+    check(last < first, f"loss did not decrease: {first} -> {last}")
+    for k, n in launches.items():
+        check(n == n_leaves * steps_run,
+              f"{k}: {n} launches, not one per leaf per step "
+              f"({n_leaves} x {steps_run})")
+    times = [m["step_time_s"] for m in res["metrics"]]
+    med = float(np.median(times))
+    grads = record.pop("grads")
+    hook = compress_hook()
+    comp_ms = kernel_ms(lambda: hook(grads), 5)
+
+    # the same trainer without the hook: the compressor's share
+    plain = Trainer(cfg, dataclasses.replace(
+        tcfg, steps=5, ckpt_every=100, ckpt_dir=str(workdir / "nohook")),
+        opt_cfg=train_opt(5))
+    no_hook = plain.run()
+    med_plain = float(np.median([m["step_time_s"]
+                                 for m in no_hook["metrics"]]))
+    del plain
+    phase_train_profile(cfg, med)
+    out = dict(
+        params=n_params, tokens_per_step=TRAIN_B * TRAIN_S,
+        steps_run=steps_run, restarts=res["restarts"],
+        final_step=res["final_step"], median_step_s=med,
+        tokens_per_s=TRAIN_B * TRAIN_S / med,
+        step_s_min_max=[min(times), max(times)],
+        loss_first_quarter=first, loss_last_quarter=last,
+        losses=[losses[s] for s in sorted(losses)],
+        ckpt_write_s=tr.write_s, peak_memory_gb=peak_gb,
+        quantize_launches_per_step=launches["quantize_int8"] / steps_run,
+        dequantize_launches_per_step=launches["dequantize_int8"] / steps_run,
+        compressor_device_ms_per_step=comp_ms,
+        median_step_s_without_hook=med_plain,
+        compressor_share_of_step=(med - med_plain) / med,
+        straggler_events=res["straggler_events"], wall_s=wall,
+    )
+    say("train", **out)
+    return {"numbers": out, "launches": launches, "grads": grads}
+
+
+def phase_train_profile(cfg, step_s: float) -> None:
+    """Where a training step's time goes: one step of ``make_train_step``
+    with the hook (after a warm one) under torch.profiler; its device
+    time by kernel, its launches, and the idle share against the
+    unprofiled median step of [train]."""
+    from repro_torch import convert, models
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.sharding.specs import ShardingRules
+    from repro_torch.train import init_opt_state, make_train_step
+
+    step = make_train_step(cfg, ShardingRules(batch=None, fsdp=None, tp=None),
+                           train_opt(TRAIN_STEPS),
+                           grad_transform=compress_hook())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_params(cfg, gen, "cuda")
+    opt = init_opt_state(params)
+    pipe = ShardedTokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S)
+    batch = convert.batch_from_numpy(next(pipe), "cuda")
+    step(params, opt, batch)
+    _, dev = profiled(lambda: step(params, opt, batch))
+    busy, top = _busy(dev)
+    say("train_profile", device_ms=busy / 1e3, launches=len(dev),
+        idle_share=1.0 - busy / 1e6 / step_s, top_device_us=top)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def phase_ef(tree: dict) -> None:
+    """Error feedback over the real gradient tree of [train], 25 steps,
+    through the kernels: per leaf the residual stays within two
+    quantization steps, and the sum of what was sent is within 1% of
+    25 g (the reference's tests at toy size)."""
+    from repro_torch.models.params import leaves
+    from repro_torch.transfer.compression import (
+        compress_with_error_feedback,
+        init_error_feedback,
+    )
+
+    grads = dict(leaves(tree))
+    n = 25
+    ef = init_error_feedback(grads)
+    total = {k: torch.zeros_like(g) for k, g in grads.items()}
+    bound = {k: float(g.abs().max()) * 2.0 / 127.0 + 1e-6
+             for k, g in grads.items()}
+    worst_res = 0.0
+    for _ in range(n):
+        sent, ef = compress_with_error_feedback(grads, ef, use_pallas=True)
+        for k in grads:
+            total[k] += sent[k]
+            r = float(ef[k].abs().max()) / bound[k]
+            worst_res = max(worst_res, r)
+            check(r <= 2.0, f"EF residual of {k}: {r} quantization steps")
+    rel = {}
+    for k, g in grads.items():
+        norm = float(torch.linalg.norm(n * g))
+        if norm > 0:
+            rel[k] = float(torch.linalg.norm(total[k] - n * g)) / norm
+    check(max(rel.values()) < 0.01, f"EF sent signal off by {rel}")
+    say("ef", steps=n, leaves=len(grads),
+        worst_residual_in_steps=worst_res,
+        worst_rel_signal_error=max(rel.values()), rel_signal_error=rel)
+    del ef, total, sent
+    torch.cuda.empty_cache()
+
+
+def phase_train_cpu(workdir: Path) -> None:
+    """Three steps of the same trainer in f32 with the hook, at
+    ``scaled_config(arch, 0.25)``, on the card and on the CPU, from one
+    step-0 checkpoint of CPU-drawn parameters (each trainer restores it)
+    and the same pipeline batches. Holds the losses (1e-4 relative) and
+    the first step's gradients (1e-3 of each leaf's largest value), and
+    bounds the final parameters' gap by AdamW's own step (module
+    constants); prints each leaf's gap and how many int8 codes of the
+    first step's gradients differ."""
+    import shutil
+
+    from repro_torch import models
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.models.params import leaves
+    from repro_torch.train import init_opt_state
+    from repro_torch.train.optimizer import schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = train_cfg(0.25, "float32")
+    opt = train_opt(TRAIN_CPU_STEPS)
+    params = models.init_params(cfg, torch.Generator().manual_seed(12), "cpu")
+    state = {"params": params, "opt": init_opt_state(params)}
+    names = [k for k, _ in leaves(params)]
+    first_g, first_q, losses, final = {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        d = workdir / f"train_{device}"
+        shutil.rmtree(d, ignore_errors=True)
+        save_checkpoint(d, 0, state,
+                        extra={"pipeline": {"next_shard": 0, "epoch": 0}})
+        hook = compress_hook()
+
+        def recorded(g, hook=hook, device=device):
+            if device not in first_g:
+                first_g[device] = [t.cpu() for t in tree_leaves(g)]
+                first_q[device] = [ops.quantize_int8(t)[0].cpu()
+                                   for t in tree_leaves(g)]
+            return hook(g)
+
+        tr = Trainer(cfg, TrainerConfig(
+            steps=TRAIN_CPU_STEPS, global_batch=TRAIN_CPU_B,
+            seq_len=TRAIN_CPU_S, ckpt_every=100, ckpt_dir=str(d),
+            log_every=1), opt_cfg=opt, grad_transform=recorded,
+            device=device)
+        losses[device] = [m["loss"] for m in tr.run()["metrics"]]
+        final[device] = load_checkpoint(d / f"step_{TRAIN_CPU_STEPS:08d}",
+                                        state)[0]["params"]
+    lc, lg = np.array(losses["cpu"]), np.array(losses["cuda"])
+    loss_rel = float(np.abs(lg - lc).max() / np.abs(lc).max())
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    grad_rel = {k: rel(a, b) for k, a, b in zip(names, first_g["cuda"],
+                                                 first_g["cpu"])}
+    p_card, p_cpu = tree_leaves(final["cuda"]), tree_leaves(final["cpu"])
+    param_rel = {k: rel(a, b) for k, a, b in zip(names, p_card, p_cpu)}
+    gap = max(float((a - b).abs().max()) for a, b in zip(p_card, p_cpu))
+    lr_sum = sum(float(schedule(opt, torch.tensor(t)))
+                 for t in range(1, TRAIN_CPU_STEPS + 1))
+    q_diff = sum(int((a != b).sum()) for a, b in zip(first_q["cuda"],
+                                                      first_q["cpu"]))
+    q_total = sum(a.numel() for a in first_q["cpu"])
+    check(loss_rel <= TRAIN_CPU_TOL["loss"],
+          f"card vs CPU losses differ by {loss_rel} relative")
+    check(max(grad_rel.values()) <= TRAIN_CPU_TOL["grads"],
+          f"card vs CPU first-step gradients differ: {grad_rel}")
+    allowed = TRAIN_CPU_TOL["adam_steps"] * lr_sum
+    check(gap <= allowed, f"card vs CPU parameters {gap} apart, more than "
+          f"AdamW's steps allow ({allowed})")
+    say("train_cpu", params=models.count_params(cfg), steps=TRAIN_CPU_STEPS,
+        batch=[TRAIN_CPU_B, TRAIN_CPU_S], losses_card=losses["cuda"],
+        losses_cpu=losses["cpu"], max_rel_loss_diff=loss_rel,
+        max_rel_grad_diff=max(grad_rel.values()),
+        max_abs_param_diff=gap, lr_sum=lr_sum, tol=TRAIN_CPU_TOL,
+        rel_param_diff=param_rel, rel_grad_diff=grad_rel,
+        first_step_q_differing=q_diff, first_step_q_total=q_total)
+
+
+def train_path(errs: dict) -> list:
+    """The training path's phases; returns its kernels-line entries. The
+    checkpoints go to a git-ignored directory of the checkout, removed at
+    the end."""
+    import shutil
+
+    counters = {"quantize_int8": "kernels.quantize_int8.launches",
+                "dequantize_int8": "kernels.dequantize_int8.launches"}
+    timing = phase_quantize(errs)
+    workdir = ROOT / "_build" / "train_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        # ---- the training path: its launch counts start at 0 in there
+        train = phase_train(workdir, counters)
+        phase_ef(train.pop("grads"))
+        phase_train_cpu(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out = []
+    for name, tpu in (("quantize_int8", QUANT_TPU),
+                      ("dequantize_int8", DEQUANT_TPU)):
+        check(train["launches"][name] > 0,
+              f"{name} was not launched on the training path")
+        t = timing[name]
+        out.append(dict(
+            name=name, route="cuda", source=QUANT_SOURCE, replaces=tpu,
+            launches=train["launches"][name], max_abs_err=errs[name],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            work=QUANT_WORK,
+        ))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers here")
@@ -1070,6 +1600,7 @@ def main(argv=None) -> int:
         "sim": materialize_jobs(jobs), "sim_1e5": materialize_jobs(big),
     }, dev, launches, errs)
     kernels += model_path(errs)
+    kernels += train_path(errs)
     line = {"kernels": kernels}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -10,7 +10,8 @@ arrays, region keys and scalars.
 ``*_state`` functions read any object with the reference's attribute
 names (the reference package's objects or the port's) and return plain
 dictionaries; ``*_from_state`` functions build the port's objects from
-them. Nothing here imports the reference package.
+them. A trainer's state (parameters, AdamW moments and step) and its
+batches cross the same way. Nothing here imports the reference package.
 """
 
 from __future__ import annotations
@@ -195,3 +196,19 @@ def decode_state_from_state(st: dict, device=None) -> dict:
     state = params_from_state(st, device)
     state["pos"] = state["pos"].to(torch.int32).reshape(())
     return state
+
+
+def opt_state_from_state(st: dict, device=None) -> dict:
+    """The port's AdamW state ({"m", "v", "step"}) from ``params_state``
+    of an optimizer state: moments as tensors, ``step`` a 0-d int32
+    tensor."""
+    state = params_from_state(st, device)
+    state["step"] = state["step"].to(torch.int32).reshape(())
+    return state
+
+
+def batch_from_numpy(batch: dict, device=None) -> dict:
+    """A pipeline batch (numpy arrays: tokens, labels) as tensors on
+    ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
+    return {k: _tensor(np.asarray(v), device) for k, v in batch.items()}

@@ -1,1 +1,18 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
+
+from __future__ import annotations
+
+import torch
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad. The
+    flash-attention and SSD kernels are forward only, like the Pallas
+    kernels they replace; autograd would run them and drop the gradient
+    of their inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel: train with "
+            "cfg.use_pallas=False, as the reference does, or call it under "
+            "torch.no_grad()"
+        )

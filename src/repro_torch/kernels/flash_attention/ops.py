@@ -10,7 +10,10 @@ padded wrapper (``repro/kernels/flash_attention/ops.py:20-42``) computes,
 whose zero keys past S lie after every real query. The kernel reads the
 [B,S,H,D] layout as it is, so nothing is transposed on the card. Each
 launch adds one to ``kernels.flash_attention.launches`` in the port's
-metrics registry; CPU calls do not count.
+metrics registry; CPU calls do not count. The kernel has no backward
+(nor has the reference's Pallas kernel), so the public wrapper refuses
+inputs that require grad while grad mode is on, on every device, before
+any build or launch: autograd would otherwise drop their gradient.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.obs.metrics import REGISTRY
 
+from .. import refuse_grad
 from ..nvcc import BASE_FLAGS, Library
 from . import ref
 
@@ -90,7 +94,9 @@ def _checked(fn, q, k, v, *, causal, window, scale):
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     scale: float | None = None):
     """q: [B,S,H,D], k/v: [B,S,Kv,D] -> [B,S,H,D] in q's type: the plain
-    version on the CPU, the CUDA kernel on the card."""
+    version on the CPU, the CUDA kernel on the card. Raises for inputs
+    that require grad (module docstring)."""
+    refuse_grad("flash attention", q, k, v)
     if q.device.type == "cpu":
         fn = _plain
     elif q.device.type == "cuda":

@@ -7,7 +7,10 @@ recurrence unchanged), as the reference does
 (``csrc/ssd_scan.cu``) for tensors on the card; there is no other route
 and no fallback. The kernel reads the model layout as it is. Each launch
 adds one to ``kernels.ssd_scan.launches`` in the port's metrics registry;
-CPU calls do not count.
+CPU calls do not count. The kernel has no backward
+(nor has the reference's Pallas kernel), so the public wrapper refuses
+inputs that require grad while grad mode is on, on every device, before
+any build or launch: autograd would otherwise drop their gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.obs.metrics import REGISTRY
 
+from .. import refuse_grad
 from ..nvcc import BASE_FLAGS, Library
 from . import ref
 
@@ -100,7 +104,9 @@ def _padded(fn, xh, dtv, a, bm, cm, *, chunk: int):
 def ssd_scan(xh, dtv, a, bm, cm, *, chunk: int = 256):
     """Model layout: xh [B,S,H,P], dtv [B,S,H], a [H], bm/cm [B,S,N]
     -> (y [B,S,H,P] in x's type, final_state [B,H,P,N] f32): the plain
-    version on the CPU, the CUDA kernel on the card."""
+    version on the CPU, the CUDA kernel on the card. Raises for inputs
+    that require grad (module docstring)."""
+    refuse_grad("SSD scan", xh, dtv, a, bm, cm)
     if xh.device.type == "cpu":
         fn = _plain
     elif xh.device.type == "cuda":

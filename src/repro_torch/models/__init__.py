@@ -5,5 +5,6 @@ from .model import (  # noqa: F401
     forward,
     init_decode_state,
     init_params,
+    loss_fn,
     prefill,
 )

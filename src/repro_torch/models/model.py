@@ -1,6 +1,5 @@
-"""Top-level model API: params, forward, prefill, decode (the port of
-``repro/models/model.py``; ``loss_fn`` and training wait for ROADMAP
-Queue 1 #9).
+"""Top-level model API: params, forward, loss, prefill, decode (the port of
+``repro/models/model.py``).
 
 ``batch`` dict convention:
   tokens  [B, S] integer   — decoder token ids
@@ -12,7 +11,11 @@ states are the largest tensors of serving, and a copy per token would
 double them. The caller's state dict is left with the new caches and the
 returned state shares them.
 
-Every function here runs under ``torch.inference_mode()``: no gradient.
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``: no
+gradient. ``forward`` and ``loss_fn`` record the autograd graph where the
+parameters require grad (training); with ``cfg.use_pallas`` they then
+raise, since the CUDA kernels have no backward (nor do the reference's
+Pallas kernels).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Parameters drawn from ``generator``, on ``device`` (the card unless
     the caller names another; raises with no card and no device)."""
-    with torch.inference_mode():
+    with torch.no_grad():
         return P.materialize(abstract_params(cfg), generator, device)
 
 
@@ -61,9 +64,8 @@ def _positions(tokens):
     return pos.expand(tokens.shape)
 
 
-@torch.inference_mode()
 def forward(cfg: ModelConfig, rules: ShardingRules, params, batch):
-    """Forward to the final norm, no gradient. Returns hidden [B, S, D]."""
+    """Train-mode forward to the final norm. Returns hidden [B, S, D]."""
     dt = _dtype(cfg)
     x = embed(cfg, rules, params["embed"], batch["tokens"], dt)
     h, _ = run_stack(cfg, rules, params["decoder"], x,
@@ -76,6 +78,30 @@ def logits_of(cfg: ModelConfig, params, h):
     activation type (products summed in f32)."""
     w = unembed_matrix(cfg, params["embed"], _dtype(cfg))
     return h.float() @ w.float()
+
+
+def loss_fn(cfg: ModelConfig, rules: ShardingRules, params, batch):
+    """Sequence-chunked cross entropy (keeps the [*, V] logits buffer small):
+    a loop over chunks of ``cfg.loss_chunk`` positions where the reference
+    scans. Returns (loss, metrics)."""
+    h = forward(cfg, rules, params, batch)
+    labels = batch["labels"].long()
+    b, s, _ = h.shape
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of loss chunk {c}")
+    # f32 products of activation-type values, as the reference's
+    # preferred_element_type=float32
+    w = unembed_matrix(cfg, params["embed"], h.dtype).float()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        logits = h[:, i:i + c].float() @ w  # [B, c, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, i:i + c, None])[..., 0]
+        total = total + torch.sum(lse - gold)
+    loss = total / (b * s)
+    return loss, {"loss": loss,
+                  "tokens": torch.tensor(b * s, dtype=torch.float32)}
 
 
 # ------------------------------------------------------------------ serving

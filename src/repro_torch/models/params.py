@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,17 +29,6 @@ class ParamDef:
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
             raise ValueError(f"shape {self.shape} vs logical {self.logical}")
-
-
-def leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """(dotted path, leaf) pairs in sorted key order, the order in which
-    jax flattens a dict."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    out = []
-    for k in sorted(tree):
-        out += leaves(tree[k], f"{prefix}.{k}" if prefix else k)
-    return out
 
 
 def materialize(tree, generator: torch.Generator, device=None):

@@ -5,7 +5,9 @@ Parameters keep the reference's stacked layout (a leading layer axis, or
 [groups, per] for the Zamba2 hybrid), so converted parameters match leaf
 for leaf; where the reference scans over that axis, the port loops in
 Python. Three execution modes share the block math:
-  train    — no caches (``models.forward``)
+  train    — no caches (``models.forward``); with ``cfg.remat`` each
+             block (each group for the hybrid) is recomputed in the
+             backward pass (``_maybe_remat``)
   prefill  — same math, additionally emits KV/SSM caches, stacked
   decode   — single token, caches updated in place
 
@@ -16,6 +18,11 @@ MoE, VLM cross-attention and encoder-decoder stacks are not ported yet
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding.specs import ShardingRules
@@ -95,6 +102,36 @@ def ssm_block_prefill(cfg, rules, p, x):
 
 
 # -------------------------------------------------------------- the stacks
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Save matmul outputs without batch dims, recompute the rest: JAX's
+    ``dots_with_no_batch_dims_saveable``. ``einsum`` contracts through
+    ``bmm``, with a batch of 1 where the contraction has no batch dims
+    (the projections) and a larger one where it has (attention scores)."""
+    if op in _MATMULS or (op == torch.ops.aten.bmm.default
+                          and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn, train: bool):
+    """``fn`` recomputed in the backward pass when training with
+    ``cfg.remat``: ``remat_policy`` "full" recomputes everything, "dots"
+    saves the matmul outputs, "none" saves everything (no remat)."""
+    if not (train and cfg.remat) or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        def context():
+            return create_selective_checkpoint_contexts(_save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def _at(tree, *idx):
     """The slice ``[idx]`` of every leaf of a nested dict (views)."""
     if isinstance(tree, dict):
@@ -145,6 +182,13 @@ def run_stack(
 def _dense_stack(cfg, rules, params, x, positions, mode, state, t_max,
                  cache_len, seen_len):
     blocks, n = params["blocks"], cfg.num_layers
+    if mode == "train":
+        body = _maybe_remat(
+            cfg, lambda h, p: dense_block(cfg, rules, p, h, positions)[0],
+            True)
+        for i in range(n):
+            x = body(x, _at(blocks, i))
+        return x, None
     kv = None
     for i in range(n):
         p = _at(blocks, i)
@@ -153,37 +197,49 @@ def _dense_stack(cfg, rules, params, x, positions, mode, state, t_max,
                                cache=_at(state["kv"], i), cache_len=cache_len,
                                seen_len=seen_len)
             continue
-        x, c = dense_block(cfg, rules, p, x, positions,
-                           emit_kv=t_max if mode == "prefill" else None)
-        if mode == "prefill":
-            kv = _store(kv, (n,), (i,), c)
+        x, c = dense_block(cfg, rules, p, x, positions, emit_kv=t_max)
+        kv = _store(kv, (n,), (i,), c)
     if mode == "decode":
         return x, {"kv": state["kv"]}
-    return x, ({"kv": kv} if mode == "prefill" else None)
+    return x, {"kv": kv}
 
 
 def _ssm_stack(cfg, rules, params, x, positions, mode, state, t_max,
                cache_len, seen_len):
     blocks, n = params["ssm_blocks"], cfg.num_layers
+    if mode == "train":
+        body = _maybe_remat(cfg, lambda h, p: ssm_block(cfg, rules, p, h)[0],
+                            True)
+        for i in range(n):
+            x = body(x, _at(blocks, i))
+        return x, None
     caches = None
     for i in range(n):
         p = _at(blocks, i)
         if mode == "decode":
             x, _ = ssm_block(cfg, rules, p, x, cache=_at(state["ssm"], i))
-        elif mode == "prefill":
+        else:
             x, c = ssm_block_prefill(cfg, rules, p, x)
             caches = _store(caches, (n,), (i,), c)
-        else:
-            x, _ = ssm_block(cfg, rules, p, x)
     if mode == "decode":
         return x, {"ssm": state["ssm"]}
-    return x, ({"ssm": caches} if mode == "prefill" else None)
+    return x, {"ssm": caches}
 
 
 def _hybrid_stack(cfg, rules, params, x, positions, mode, state, t_max,
                   cache_len, seen_len):
     groups, per = cfg.scan_groups()
     blocks, shared = params["ssm_blocks"], params["shared"]
+    if mode == "train":
+        def group(h, pg, ps):
+            for i in range(per):
+                h, _ = ssm_block(cfg, rules, _at(pg, i), h)
+            return dense_block(cfg, rules, ps, h, positions)[0]
+
+        body = _maybe_remat(cfg, group, True)
+        for g in range(groups):
+            x = body(x, _at(blocks, g), shared)
+        return x, None
     ssm_c = kv_c = None
     for g in range(groups):
         for i in range(per):
@@ -191,20 +247,16 @@ def _hybrid_stack(cfg, rules, params, x, positions, mode, state, t_max,
             if mode == "decode":
                 x, _ = ssm_block(cfg, rules, p, x,
                                  cache=_at(state["ssm"], g, i))
-            elif mode == "prefill":
+            else:
                 x, c = ssm_block_prefill(cfg, rules, p, x)
                 ssm_c = _store(ssm_c, (groups, per), (g, i), c)
-            else:
-                x, _ = ssm_block(cfg, rules, p, x)
         if mode == "decode":
             x, _ = dense_block(cfg, rules, shared, x, positions,
                                cache=_at(state["kv"], g), cache_len=cache_len,
                                seen_len=seen_len)
             continue
-        x, kv = dense_block(cfg, rules, shared, x, positions,
-                            emit_kv=t_max if mode == "prefill" else None)
-        if mode == "prefill":
-            kv_c = _store(kv_c, (groups,), (g,), kv)
+        x, kv = dense_block(cfg, rules, shared, x, positions, emit_kv=t_max)
+        kv_c = _store(kv_c, (groups,), (g,), kv)
     if mode == "decode":
         return x, {"ssm": state["ssm"], "kv": state["kv"]}
-    return x, ({"ssm": ssm_c, "kv": kv_c} if mode == "prefill" else None)
+    return x, {"ssm": ssm_c, "kv": kv_c}

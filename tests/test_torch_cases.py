@@ -51,3 +51,31 @@ def ssd_inputs(seed, b, h, s, p, n, *, layout="bhsp"):
     bm = rng.standard_normal((b, s, n)).astype(np.float32)
     cm = rng.standard_normal((b, s, n)).astype(np.float32)
     return x, dt, a, bm, cm
+
+
+def quantize_inputs(case: str):
+    """(x f32, block) for the quantizer: the lengths of the reference's
+    compression tests, a ragged tail, half-way ties, zeros and a leaf of
+    several dims."""
+    rng = np.random.default_rng(11)
+    if case == "ties":
+        # absmax 127 makes the scale exactly 1, so x / scale is x
+        x = np.zeros(256, np.float32)
+        x[:9] = [2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5, -1.5, 127.0]
+        x[9:] = rng.uniform(-100, 100, 247).astype(np.float32)
+        return x, 256
+    if case == "zeros":
+        return np.zeros((3, 5, 7), np.float32), 16
+    if case == "leaf_3d":
+        return rng.standard_normal((3, 17, 29)).astype(np.float32), 256
+    if case == "huge_and_tiny":
+        x = rng.standard_normal(2048).astype(np.float32)
+        x[:256] *= 1e30
+        x[256:512] *= 1e-30
+        return x, 256
+    n, block, scale = {
+        "normal_1024": (1024, 256, 1.0), "ragged_1000": (1000, 256, 1.0),
+        "tiny_7_block4": (7, 4, 1.0), "one_block_256": (256, 256, 1.0),
+        "scaled_4000": (4000, 256, 1e3),
+    }[case]
+    return (rng.standard_normal(n) * scale).astype(np.float32), block

@@ -7,8 +7,9 @@ reference package, so it runs on a card's machine that has neither:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
 The CPU tests (``test_torch_waterfill``, ``test_torch_flash_attention``,
-``test_torch_ssd_scan``) hold the same plain versions against the
-reference; the tolerances here are theirs.
+``test_torch_ssd_scan``, ``test_torch_quantize``) hold the same plain
+versions against the reference; the tolerances here are theirs (the
+quantizer's: bit for bit).
 """
 
 from __future__ import annotations
@@ -17,11 +18,17 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.quantize import ops as quant_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.waterfill import ops as wf_ops
 from repro_torch.obs.metrics import REGISTRY
 
-from test_torch_cases import qkv, ssd_inputs, waterfill_case
+from test_torch_cases import (
+    qkv,
+    quantize_inputs,
+    ssd_inputs,
+    waterfill_case,
+)
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -110,3 +117,47 @@ def test_ssd_kernel_matches_plain_version(dtype, b, h, s, p, n, q):
     torch.testing.assert_close(y.cpu().float(), y_want.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(state.cpu(), s_want, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    "normal_1024", "ragged_1000", "tiny_7_block4", "one_block_256",
+    "scaled_4000", "ties", "zeros", "leaf_3d", "huge_and_tiny",
+])
+def test_quantize_kernels_match_plain_versions_bitwise(case, dtype):
+    _need_card()
+    x, block = quantize_inputs(case)
+    t = torch.tensor(x).to(_TORCH[dtype])
+    qc = REGISTRY.counter("kernels.quantize_int8.launches")
+    dc = REGISTRY.counter("kernels.dequantize_int8.launches")
+    n0, m0 = qc.value, dc.value
+    q, s = quant_ops.quantize_int8(t.cuda(), block=block)
+    back = quant_ops.dequantize_int8(q, s, block=block)
+    torch.cuda.synchronize()
+    assert (qc.value, dc.value) == (n0 + 1, m0 + 1)
+    q0, s0 = quant_ops.quantize_int8_plain(t, block=block)
+    assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
+    assert torch.equal(back.cpu(),
+                       quant_ops.dequantize_int8_plain(q0, s0, block=block))
+
+
+@pytest.mark.gpu
+def test_quantize_kernel_nan_block_and_unaligned_view():
+    """A NaN block's scale is 1.0 as in the plain version; a view that
+    starts off the 16-byte grid takes the scalar kernel, same bits."""
+    _need_card()
+    x = torch.tensor(quantize_inputs("scaled_4000")[0])
+    x[300] = float("nan")
+    q, s = quant_ops.quantize_int8(x.cuda())
+    q0, s0 = quant_ops.quantize_int8_plain(x)
+    assert torch.equal(s.cpu(), s0) and float(s[1]) == 1.0
+    finite = torch.isfinite(x)
+    assert torch.equal(q.cpu()[finite], q0[finite])
+    y = torch.tensor(quantize_inputs("scaled_4000")[0]).cuda()[1:]
+    q, s = quant_ops.quantize_int8(y)
+    q0, s0 = quant_ops.quantize_int8_plain(y.cpu())
+    assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
+    back = quant_ops.dequantize_int8(q[1:], s, block=256)
+    want = quant_ops.dequantize_int8_plain(q0[1:], s0, block=256)
+    assert torch.equal(back.cpu(), want)

@@ -43,7 +43,11 @@ def test_port_files_exist():
     "models/model.py", "serve/serve_step.py", "launch/serve.py",
     "kernels/nvcc.py", "kernels/flash_attention/ops.py",
     "kernels/flash_attention/ref.py", "kernels/ssd_scan/ops.py",
-    "kernels/ssd_scan/ref.py",
+    "kernels/ssd_scan/ref.py", "kernels/quantize/ops.py",
+    "kernels/quantize/ref.py", "transfer/compression.py", "transfer/chunk.py",
+    "data/pipeline.py", "tree.py", "train/optimizer.py", "train/train_step.py",
+    "train/trainer.py", "ckpt/checkpoint.py", "launch/train.py",
+    "convert.py",
 ])
 def test_model_path_modules_are_checked(module):
     """The model path's modules are among the files checked below."""
