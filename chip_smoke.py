@@ -9,9 +9,11 @@ plans the Fig. 6 route on the card (batched torch IPM) and moves the
 plan's chunks through the device-resident sim, first at 10,240 chunks of
 64 MB with scripted faults (held field for field against the same run on
 the CPU), then at 100,000 chunks. The model path follows: the flash
-attention and SSD scan kernels against their plain versions at Zamba2-7B's
-shapes and others, then ``zamba2-7b`` at full width and depth (6.75e9 f32
-parameters from a seed): served through ``repro_torch.launch.serve`` (a
+attention kernels (bf16 on the tensor cores, f32 on the vector units) and
+the SSD scan kernel against their plain versions at Zamba2-7B's shapes
+and others, both flash kernels timed beside
+``scaled_dot_product_attention``, then ``zamba2-7b`` at full width and
+depth (6.75e9 f32 parameters from a seed): served through ``repro_torch.launch.serve`` (a
 4 x 4096 prefill, then greedy decode), its ``forward`` with the kernels
 against the plain path, and a reduced copy on the card against the CPU.
 The training path comes last: the int8 quantize and dequantize kernels
@@ -35,6 +37,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,7 +60,11 @@ BF16_TENSOR_OPS = 989e12  # dense bf16 on tensor cores
 WF_SOURCE = "src/repro_torch/kernels/waterfill/csrc/waterfill.cu"
 WF_TPU = "src/repro/kernels/waterfill/waterfill.py:41"
 SEGSUM_REPLACES = "src/repro/transfer/flowsim_jax.py:325"
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# bf16 flash attention runs on the tensor-core kernel; f32 keeps the
+# vector-unit kernel
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu"
+FLASH_VECTOR_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu")
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:32"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:30"
@@ -298,20 +305,46 @@ def phase_build():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.waterfill import build
 
-    libs = [build.LIBRARY, flash_ops.LIBRARY, ssd_ops.LIBRARY,
-            quant_ops.LIBRARY]
+    libs = [flash_ops.WGMMA_LIBRARY, build.LIBRARY, flash_ops.LIBRARY,
+            ssd_ops.LIBRARY, quant_ops.LIBRARY]
     t0 = time.perf_counter()
     nvcc.build_all(libs)
     seconds = time.perf_counter() - t0
     card = card_line()
     print(card, flush=True)
-    regs = {lib.source.name: [
+    regs = {lib.source.name: sorted({
         ln.strip() for ln in lib.ptxas.splitlines()
-        if "registers" in ln or "spill" in ln] for lib in libs}
+        if "registers" in ln or "spill" in ln or "arning" in ln})
+        for lib in libs}
+    hgmma = sass_count(flash_ops.WGMMA_LIBRARY.path(), "HGMMA")
+    check(hgmma and all(n > 0 for n in hgmma.values()),
+          f"the tensor-core flash kernels hold no HGMMA: {hgmma}")
     say("build", seconds=round(seconds, 3), card=card,
         nvcc_s={lib.source.name: round(lib.build_s, 3) for lib in libs},
-        ptxas=regs)
+        ptxas=regs, flash_wgmma_hgmma_by_head_dim=hgmma)
     return card
+
+
+def sass_count(lib: Path, opcode: str) -> dict:
+    """Per kernel of a built library, the SASS instructions whose opcode
+    starts with ``opcode``, from ``cuobjdump -sass``; keyed by the
+    kernel's template argument (the head dim) where it has one."""
+    from repro_torch.kernels.nvcc import nvcc
+
+    tool = Path(nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    name = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            m = re.search(r"ILi(\d+)E", name)
+            name = m.group(1) if m else name
+            counts[name] = 0
+        elif name is not None and re.search(rf"\b{opcode}", ln):
+            counts[name] += 1
+    return counts
 
 
 def phase_waterfill(shapes, dev, errs):
@@ -747,27 +780,94 @@ def ssd_bound(c: dict, dtype) -> tuple[float, str]:
 
 
 def phase_flash(errs):
-    """The flash kernel against its plain version on the card, f32 and
-    bf16, at every FLASH_CASES shape."""
+    """The flash kernels against their plain version on the card, f32 and
+    bf16, at every FLASH_CASES shape: ``flash_attention`` as the model
+    calls it (bf16 on the tensor-core kernel, f32 on the vector-unit
+    one), and the vector-unit kernel on the bf16 inputs too."""
     from repro_torch.kernels.flash_attention import ops
 
     out = {}
     for label, c in FLASH_CASES.items():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(c, dtype, seed=1)
-            got = ops.flash_attention(q, k, v, window=c["window"])
             want = ops.flash_attention_plain(q, k, v, window=c["window"])
-            check(bool(torch.isfinite(got).all()), f"flash {label}: not finite")
-            err = float((got.float() - want.float()).abs().max())
-            check(err <= FLASH_TOL[dtype],
-                  f"flash {label} {dtype}: |kernel - plain| {err}")
-            errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
-                                          err)
-            out[f"{label}_{str(dtype)[6:]}"] = err
-            del q, k, v, got, want
+            runs = {ops.kernel_for(dtype, c["d"]): ops.flash_attention}
+            runs.setdefault("vector", lambda *a, **kw: ops.flash_attention_on(
+                "vector", *a, **kw))
+            for kernel, fn in runs.items():
+                got = fn(q, k, v, window=c["window"])
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {label} {kernel}: not finite")
+                err = float((got.float() - want.float()).abs().max())
+                check(err <= FLASH_TOL[dtype],
+                      f"flash {label} {dtype} {kernel}: |kernel - plain| "
+                      f"{err}")
+                name = ("flash_attention" if kernel == "wgmma"
+                        or dtype == torch.float32 else "flash_vector_bf16")
+                errs[name] = max(errs.get(name, 0.0), err)
+                out[f"{label}_{str(dtype)[6:]}_{kernel}"] = err
+                del got
+            del q, k, v, want
     torch.cuda.empty_cache()
     say("flash", cases=len(out), max_abs_err=out, tol={
         str(k)[6:]: v for k, v in FLASH_TOL.items()})
+
+
+def timed_turns(fns: dict, reps: dict) -> dict:
+    """Device ms per call of each of ``fns`` by ``kernel_ms`` (``reps[name]``
+    calls), taken in turns, a b b a, so that drift on the card hits every
+    one alike; each is the mean of its two readings."""
+    names = list(fns)
+    got: dict = {n: [] for n in names}
+    for n in names + names[::-1]:
+        got[n].append(kernel_ms(fns[n], reps[n]))
+    return {n: sum(v) / len(v) for n, v in got.items()}
+
+
+def phase_flash_times() -> dict:
+    """bf16 at every FLASH_CASES shape: the tensor-core kernel, the
+    vector-unit kernel on the same inputs, and, where one PyTorch call
+    computes the same function, ``scaled_dot_product_attention``, timed in
+    turns on one card; each beside its bound. A profiled call shows that
+    the tensor-core path launches that kernel and nothing else."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    out = {}
+    for label, c in FLASH_CASES.items():
+        q, k, v = flash_inputs(c, torch.bfloat16, seed=3)
+        w = c["window"]
+        fns = {
+            "wgmma": lambda: ops.flash_attention(q, k, v, window=w),
+            "vector": lambda: ops.flash_attention_on("vector", q, k, v,
+                                                     window=w),
+        }
+        if w is None:  # one SDPA call is the same function
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            gqa = {"enable_gqa": True} if c["h"] != c["kv"] else {}
+            fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, **gqa)
+        ms = timed_turns(fns, {"wgmma": 20, "vector": 2, "sdpa": 20})
+        bound, by = flash_bound(c, torch.bfloat16)
+        out[label] = dict(
+            ms=ms["wgmma"], vector_ms=ms["vector"], sdpa_ms=ms.get("sdpa"),
+            bound_ms=bound, bound_by=by, bound_share=bound / ms["wgmma"],
+            sdpa_over_kernel=(ms["sdpa"] / ms["wgmma"] if "sdpa" in ms
+                              else None))
+        if label == "zamba2":
+            # the profiler names every PyTorch, cuBLAS or cuDNN kernel; a
+            # kernel launched from the port's own libraries is unnamed
+            _, dev = profiled(fns["wgmma"])
+            named = sorted({n for n, _, _ in dev if n})
+            check(not named, f"the tensor-core flash call launched {named}")
+            out[label]["profiled_device_events"] = len(dev)
+        del q, k, v, fns
+        if w is None:
+            del qt, kt, vt
+    torch.cuda.empty_cache()
+    say("flash_times", **out)
+    return out
 
 
 def phase_ssd(errs):
@@ -801,7 +901,8 @@ def phase_ssd(errs):
 def phase_serve():
     """``repro_torch.launch.serve`` as a user runs it, at full width and
     depth; returns its flash launches (27 per prefill: one shared
-    attention block after each of 27 groups)."""
+    attention block after each of 27 groups), those of the tensor-core
+    kernel, and serve's numbers."""
     from repro_torch.launch import serve
     from repro_torch.obs.metrics import REGISTRY
 
@@ -809,16 +910,20 @@ def phase_serve():
     out = serve.main(SERVE_ARGS)
     torch.cuda.synchronize()
     fl = int(REGISTRY.counter("kernels.flash_attention.launches").value)
+    fw = int(REGISTRY.counter(
+        "kernels.flash_attention.wgmma_launches").value)
     ss = int(REGISTRY.counter("kernels.ssd_scan.launches").value)
     check(fl == 27, f"prefill launched flash attention {fl} times, not 27")
+    check(fw == 27, f"{fw} of the prefill's 27 flash launches took the "
+          "tensor-core kernel")
     check(ss == 0, "prefill reached the SSD kernel (the reference's does not)")
     check(out["params"] == 6_751_130_832, "not the full zamba2-7b")
     say("serve", prefill_s=out["prefill_s"], decode_s=out["decode_s"],
         decode_tok_s=out["decode_tok_s"], param_gb=out["param_gb"],
         params=out["params"], max_memory_gb=torch.cuda.max_memory_allocated()
-        / 1e9, flash_launches=fl, ssd_launches=ss,
+        / 1e9, flash_launches=fl, flash_wgmma_launches=fw, ssd_launches=ss,
         sample_tokens=out["sample_tokens"])
-    return fl, out
+    return fl, fw, out
 
 
 def zamba_full(use_pallas: bool, dtype: str = "bfloat16"):
@@ -845,7 +950,7 @@ def phase_forward(params, batch, counters: dict):
     type), then in f32 with the kernels (use_pallas True) and with the
     plain path (False: einsum attention, ``ssd_chunked``), same parameters
     and tokens. The counters are zeroed just before the bf16 run and read
-    just after it; returns its (flash, ssd) launches."""
+    just after it; returns its (flash, tensor-core flash, ssd) launches."""
     from repro_torch import models
     from repro_torch.launch.serve import RULES
     from repro_torch.models.model import logits_of
@@ -866,6 +971,7 @@ def phase_forward(params, batch, counters: dict):
         wall = time.perf_counter() - t0
         if key == "bf16":
             fl = int(REGISTRY.counter(counters["flash_attention"]).value)
+            fw = int(REGISTRY.counter(counters["flash_wgmma"]).value)
             ss = int(REGISTRY.counter(counters["ssd_scan"]).value)
         check(h.shape == (MODEL_B, MODEL_S, c.d_model)
               and bool(torch.isfinite(h).all()), f"forward {key}: bad hidden")
@@ -873,8 +979,9 @@ def phase_forward(params, batch, counters: dict):
                         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                         hidden=h if key != "bf16" else None)
         del h
-    check(fl == 27 and ss == 81,
-          f"forward launched flash {fl} and SSD {ss} times, not 27 and 81")
+    check(fl == 27 and fw == 27 and ss == 81,
+          f"forward launched flash {fl} ({fw} tensor-core) and SSD {ss} "
+          "times, not 27 (27) and 81")
     k, p = res["f32"], res["f32_plain"]
     rel_h = float((k["hidden"] - p["hidden"]).abs().max()
                   / p["hidden"].abs().max())
@@ -897,10 +1004,10 @@ def phase_forward(params, batch, counters: dict):
             (b - p["logits"]).abs().max()),
         argmax_agree_bf16_f32_plain=float(
             (b.argmax(-1) == p["logits"].argmax(-1)).float().mean()),
-        flash_launches=fl, ssd_launches=ss)
+        flash_launches=fl, flash_wgmma_launches=fw, ssd_launches=ss)
     del res
     torch.cuda.empty_cache()
-    return fl, ss
+    return fl, fw, ss
 
 
 def _busy(dev, lo=float("-inf"), hi=float("inf")):
@@ -918,13 +1025,20 @@ def _busy(dev, lo=float("-inf"), hi=float("inf")):
 def phase_serve_profile(params, batch, serve_numbers: dict):
     """Where the serving time goes: one 4 x 4096 prefill and four greedy
     steps under torch.profiler, the device time of each by kernel, and
-    each idle share against the unprofiled [serve] wall times."""
+    each idle share against the unprofiled [serve] wall times; the
+    prefill's also against a warm unprofiled prefill."""
     from repro_torch.launch.serve import RULES
     from repro_torch.serve import make_prefill_step, make_serve_step
 
     cfg = zamba_full(True)
     prefill_step = make_prefill_step(cfg, RULES, t_max=MODEL_S + 8)
     serve_step = make_serve_step(cfg, RULES)
+    # [serve]'s prefill is the process's first; this one runs warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_step(params, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     (state, logits), dev = profiled(lambda: prefill_step(params, batch))
     p_busy, p_top = _busy(dev)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -942,6 +1056,8 @@ def phase_serve_profile(params, batch, serve_numbers: dict):
                  * 1e6)
     say("serve_profile", prefill_device_us=round(p_busy, 1),
         prefill_idle_share=round(1.0 - p_busy / prefill_wall, 4),
+        prefill_warm_s=warm_s,
+        prefill_warm_idle_share=round(1.0 - p_busy / (warm_s * 1e6), 4),
         prefill_top_device_us=p_top,
         decode_device_us_per_step=round(d_busy / 4, 1),
         decode_launches_per_step=round(len(dev) / 4, 1),
@@ -984,30 +1100,28 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def model_kernels(launches: dict, errs: dict):
-    """The kernels-line entries of flash attention and the SSD scan, timed
-    at Zamba2-7B's shapes in bf16 (the model's activation type)."""
-    import torch.nn.functional as F
-
+def model_kernels(launches: dict, errs: dict, flash_times: dict):
+    """The kernels-line entries of flash attention and the SSD scan at
+    Zamba2-7B's shapes in bf16 (the model's activation type). Flash
+    attention's kernel, vector-unit and library times are
+    ``[flash_times]``'s, taken in turns on this card."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     out, bf16 = [], torch.bfloat16
     c = FLASH_CASES["zamba2"]
     q, k, v = flash_inputs(c, bf16, seed=3)
-    bound, by = flash_bound(c, bf16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    t = flash_times["zamba2"]
     out.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_TPU, launches=launches["flash_attention"],
-        max_abs_err=errs["flash_attention"],
-        ms=kernel_ms(lambda: flash_ops.flash_attention(q, k, v), 5),
+        max_abs_err=errs["flash_attention"], ms=t["ms"],
         plain_ms=cuda_ms(lambda: flash_ops.flash_attention_plain(q, k, v), 2),
-        bound_ms=bound, bound_by=by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 5),
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["sdpa_ms"], wgmma_launches=launches["flash_wgmma"],
+        vector_source=FLASH_VECTOR_SOURCE, vector_ms=t["vector_ms"],
     ))
-    del q, k, v, qt, kt, vt
+    del q, k, v
     c = SSD_CASES["zamba2"]
     args = ssd_inputs(c, bf16, seed=4)
     bound, by = ssd_bound(c, bf16)
@@ -1028,24 +1142,26 @@ def model_path(errs: dict) -> list:
     from repro_torch.obs.metrics import REGISTRY
 
     phase_flash(errs)
+    flash_times = phase_flash_times()
     phase_ssd(errs)
     counters = {"flash_attention": "kernels.flash_attention.launches",
+                "flash_wgmma": "kernels.flash_attention.wgmma_launches",
                 "ssd_scan": "kernels.ssd_scan.launches"}
     # ---- the model path: every launch count starts at 0 before each run
     for n in counters.values():
         REGISTRY.counter(n).reset()
-    serve_flash, serve_numbers = phase_serve()
+    serve_flash, serve_wgmma, serve_numbers = phase_serve()
     params, batch = zamba_params()
-    fwd_flash, fwd_ssd = phase_forward(params, batch, counters)
+    fwd_flash, fwd_wgmma, fwd_ssd = phase_forward(params, batch, counters)
     phase_serve_profile(params, batch, serve_numbers)
     del params, batch
     torch.cuda.empty_cache()
     launches = {"flash_attention": serve_flash + fwd_flash,
-                "ssd_scan": fwd_ssd}
+                "flash_wgmma": serve_wgmma + fwd_wgmma, "ssd_scan": fwd_ssd}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the model path")
     phase_model_cpu()
-    return model_kernels(launches, errs)
+    return model_kernels(launches, errs, flash_times)
 
 
 # ------------------------------------------------------------- train path

@@ -1,10 +1,12 @@
 """Build a kernel source with ``nvcc`` and load it with ctypes.
 
 Every CUDA library of the port is one ``csrc/*.cu`` file with a plain C
-interface. A ``Library`` compiles its source for ``sm_90a`` into a shared
-library at first use, into ``_build/`` beside its package (listed in
-``.gitignore``), and caches the handle. The library's name carries a hash
-of the source and the flags, so an edited source builds anew.
+interface, which may include headers beside it. A ``Library`` compiles
+its source for ``sm_90a`` into a shared library at first use, into
+``_build/`` beside its package (listed in ``.gitignore``), and caches the
+handle. The library's name carries a hash
+of the flags and of every file in the source's ``csrc/`` directory, so an
+edited source or header builds anew.
 ``build_all`` starts one ``nvcc`` per library at once and waits for all.
 Nothing here runs at import time: the CPU tests import the kernels'
 modules on machines without ``nvcc``.
@@ -59,9 +61,15 @@ class Library:
         self.ptxas = ""
 
     def path(self) -> Path:
-        tag = hashlib.sha256(
-            self.source.read_bytes() + " ".join(self.flags).encode()
-        ).hexdigest()[:16]
+        """The library's file, named by a hash of the flags and of every
+        file in the source's directory (by name and content), so that an
+        edited header builds anew too."""
+        h = hashlib.sha256(" ".join(self.flags).encode())
+        for f in sorted(self.source.parent.rglob("*")):
+            if f.is_file() and "__pycache__" not in f.parts:
+                h.update(f.relative_to(self.source.parent).as_posix().encode())
+                h.update(f.read_bytes())
+        tag = h.hexdigest()[:16]
         return self.build_dir / f"lib{self.source.stem}_{tag}.so"
 
     def start(self) -> tuple[subprocess.Popen, Path, float] | None:

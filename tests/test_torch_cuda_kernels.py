@@ -94,6 +94,58 @@ def test_flash_kernel_matches_plain_version(dtype, b, s, h, kv, d, window):
                                rtol=0)
 
 
+_WGMMA_CASES = (
+    # every head dim of configs/archs.py at S 1, 63, 129 and 1000 (B 2)
+    [(2, s, 2, 2, d, None, True) for d in (64, 112, 128, 192)
+     for s in (1, 63, 129, 1000)]
+    # GQA 7:1 and 8:1, windows 64 and 200, one non-causal call
+    + [(2, 129, 14, 2, 128, None, True), (2, 1000, 8, 1, 112, None, True),
+       (2, 1000, 16, 2, 64, 64, True), (2, 1000, 7, 1, 192, 200, True),
+       (2, 63, 8, 1, 112, 200, True), (2, 1000, 4, 4, 112, 64, True),
+       (2, 129, 4, 4, 112, None, False), (2, 300, 3, 3, 16, None, True)]
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d,window,causal", _WGMMA_CASES)
+def test_wgmma_flash_kernel_matches_plain_version(b, s, h, kv, d, window,
+                                                  causal):
+    """The tensor-core kernel (bf16, D a multiple of 16) against the
+    plain version at the reference's bf16 tolerance, 2e-2."""
+    _need_card()
+    q, k, v = (torch.tensor(a).to(torch.bfloat16)
+               for a in qkv(11, b, s, h, kv, d))
+    assert flash_ops.kernel_for(q.dtype, d) == "wgmma"
+    count = REGISTRY.counter("kernels.flash_attention.launches")
+    wgmma = REGISTRY.counter("kernels.flash_attention.wgmma_launches")
+    n0, w0 = count.value, wgmma.value
+    got = flash_ops.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                    causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (count.value, wgmma.value) == (n0 + 1, w0 + 1)
+    want = flash_ops.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-2,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_vector_kernel_still_takes_f32_and_odd_bf16_head_dims():
+    _need_card()
+    wgmma = REGISTRY.counter("kernels.flash_attention.wgmma_launches")
+    for dtype, d in ((torch.float32, 112), (torch.bfloat16, 24)):
+        q, k, v = (torch.tensor(a).to(dtype) for a in qkv(12, 1, 70, 2, 2, d))
+        w0 = wgmma.value
+        got = flash_ops.flash_attention(q.cuda(), k.cuda(), v.cuda())
+        torch.cuda.synchronize()
+        assert wgmma.value == w0
+        want = flash_ops.flash_attention_plain(q, k, v)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol, rtol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(

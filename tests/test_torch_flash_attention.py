@@ -73,3 +73,43 @@ def test_cpu_calls_do_not_count_and_other_devices_raise():
     meta = [t.to("meta") for t in (q, k, v)]
     with pytest.raises(ValueError):
         ops.flash_attention(*meta)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,kernel",
+    [(torch.bfloat16, d, "wgmma") for d in (16, 64, 112, 128, 192)]
+    + [(torch.float32, d, "vector") for d in (16, 64, 112, 128, 192)]
+    + [(torch.bfloat16, d, "vector") for d in (8, 24, 100, 136)],
+)
+def test_kernel_for_routes_by_dtype_and_head_dim(dtype, d, kernel):
+    """bf16 with D a multiple of 16 up to 192 takes the tensor-core
+    kernel; f32 and every other bf16 D the vector-unit kernel."""
+    assert ops.kernel_for(dtype, d) == kernel
+
+
+def test_every_arch_head_dim_takes_the_tensor_core_kernel_in_bf16():
+    from repro_torch.configs import archs
+
+    dims = {a.head_dim for a in archs.ARCHS.values() if a.head_dim}
+    assert {64, 112, 128, 192} <= dims
+    assert {ops.kernel_for(torch.bfloat16, d) for d in dims} == {"wgmma"}
+
+
+def test_wgmma_header_matches_its_generator():
+    import importlib.util
+
+    csrc = ops.LIBRARY.source.parent
+    spec = importlib.util.spec_from_file_location(
+        "gen_wgmma", csrc / "gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert (csrc / "wgmma_ops.cuh").read_text() == gen.render()
+    assert set(gen.RS_WIDTHS) == set(range(16, ops.MAX_HEAD_DIM + 1, 16))
+
+
+def test_naming_a_kernel_needs_card_tensors():
+    q, k, v = (torch.tensor(a) for a in qkv(4, 1, 16, 2, 2, 16))
+    with pytest.raises(ValueError):
+        ops.flash_attention_on("vector", q, k, v)
+    with pytest.raises(ValueError):
+        ops.flash_attention_on("wgmma", q, k, v)
