@@ -8,13 +8,18 @@ all started together), holds each against its plain PyTorch version, then
 plans the Fig. 6 route on the card (batched torch IPM) and moves the
 plan's chunks through the device-resident sim, first at 10,240 chunks of
 64 MB with scripted faults (held field for field against the same run on
-the CPU), then at 100,000 chunks. The model path follows: the flash
+the CPU), then at 100,000 chunks; on the card the sim runs each block of
+iterations as a replayed CUDA graph, and the sim phases report the graphs
+captured, their capture seconds and their replays; ``[sim_1e5]``
+brackets every block with CUDA events for the card's idle share. The
+model path follows: the flash
 attention kernels (bf16 on the tensor cores, f32 on the vector units) and
 the SSD scan kernel against their plain versions at Zamba2-7B's shapes
 and others, both flash kernels timed beside
 ``scaled_dot_product_attention``, then ``zamba2-7b`` at full width and
-depth (6.75e9 f32 parameters from a seed): served through ``repro_torch.launch.serve`` (a
-4 x 4096 prefill, then greedy decode), its ``forward`` with the kernels
+depth (6.75e9 f32 parameters from a seed): served through
+``repro_torch.launch.serve`` (a 4 x 4096 prefill, then greedy decode),
+its ``forward`` with the kernels
 against the plain path, and a reduced copy on the card against the CPU.
 The training path comes last: the int8 quantize and dequantize kernels
 bit for bit against their plain versions at every gradient leaf of
@@ -35,6 +40,7 @@ exits non-zero at once where there is no CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -263,10 +269,13 @@ def wf_bound(args: dict, rounds: int, precision: str) -> tuple[float, str]:
         "operations"
 
 
-def live_rounds(args: dict, precision: str) -> int:
-    """Rounds of one solve in which a lane is still unfixed (the bound's
-    operation count): the water-filling rounds redone in numpy at the
-    kernel's precision, capped at the kernel's round bound."""
+def live_rounds(args: dict, precision: str) -> tuple[int, int]:
+    """(rounds, chain) of one solve: the rounds in which a lane is still
+    unfixed (the bound's operation count), and per live round the most
+    newly fixed nonzero rates in one segment, summed over the rounds (the
+    longest chain of dependent adds the ordered budget sums force). The
+    water-filling rounds redone in numpy at the kernel's precision,
+    capped at the kernel's round bound."""
     dt, none, eps = ((np.float64, np.inf, 1e-12) if precision == "f64"
                      else (np.float32, np.float32(1e30), np.float32(1e-6)))
     a = {k: v.cpu().numpy() for k, v in args.items() if v is not None}
@@ -277,7 +286,7 @@ def live_rounds(args: dict, precision: str) -> int:
     bud = [b.astype(dt) for _, b in maps]
     ne = a["ed_cap"].shape[0] if "ed_cap" in a else 0
     bound = 2 * a["eg_cap"].shape[0] + ne + 4
-    k = 0
+    k = chain = 0
     while k < bound and un.any():
         share = np.full(caps.shape, none, dt)
         for (idx, _), b in zip(maps, bud):
@@ -288,13 +297,15 @@ def live_rounds(args: dict, precision: str) -> int:
         cap_bound = hit.any()
         new = hit if cap_bound else un & (share <= share[un].min() + eps)
         rate = caps if cap_bound else share
+        chain += max(int(np.bincount(idx[new & (rate != 0)]).max(initial=0))
+                     for idx, _ in maps)
         for j, (idx, _) in enumerate(maps):
             used = np.bincount(idx[new], weights=rate[new],
                                minlength=bud[j].shape[0])
             bud[j] = np.maximum(bud[j] - used.astype(dt), 0).astype(dt)
         un &= ~new
         k += 1
-    return k
+    return k, chain
 
 
 # ------------------------------------------------------------------- phases
@@ -484,6 +495,22 @@ def traced_sim(jobs, faults, **kw):
         trace.disable()
 
 
+SIM_BLOCK = 64  # simulate_multi_torch's default block: one graph's length
+
+
+def graph_counts() -> dict:
+    """The sim's CUDA-graph counters: graphs captured, seconds of capture
+    and instantiation, replays, and predicated iterations run."""
+    from repro_torch.obs.metrics import REGISTRY
+
+    return {k: REGISTRY.counter(f"sim.{k}").value for k in (
+        "graph_captures", "graph_capture_s", "graph_replays", "iterations")}
+
+
+def graph_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in graph_counts().items()}
+
+
 def same_run(card, cpu, what: str) -> None:
     check(card.events == cpu.events and card.time_s == cpu.time_s,
           f"{what}: card and CPU runs differ in events or time")
@@ -497,7 +524,9 @@ def phase_sim(jobs, faults):
     from repro_torch.transfer.flowsim_torch import simulate_multi_torch
 
     seq = REGISTRY.counter("sim.seq_cascades")
+    g0 = graph_counts()
     card, wall, card_tr = traced_sim(jobs, faults)
+    graphs = graph_delta(g0)
     cpu, cpu_wall, cpu_tr = traced_sim(jobs, faults, device="cpu")
     same_run(card, cpu, "fig6")
     check(card_tr == cpu_tr, "card and CPU Skytrace streams differ")
@@ -505,14 +534,17 @@ def phase_sim(jobs, faults):
     # a multicast job through relays with a relay buffer of one chunk:
     # the host-side sequential cascade fires on most iterations
     mc_jobs, mc_faults = relay_jobs(jobs[0].plan.top)
-    seq0 = seq.value
+    seq0, g0 = seq.value, graph_counts()
     tight, tight_wall, _ = traced_sim(mc_jobs, mc_faults,
                                       relay_buffer_chunks=1)
     fired = seq.value - seq0
+    tight_graphs = graph_delta(g0)
     tight_cpu, _, _ = traced_sim(mc_jobs, mc_faults, device="cpu",
                                  relay_buffer_chunks=1)
     same_run(tight, tight_cpu, "multicast, relay_buffer_chunks=1")
     check(fired > 0, "the sequential cascade never fired")
+    check(graphs["graph_captures"] > 0 and tight_graphs["graph_captures"] > 0,
+          "the card's sim captured no CUDA graph")
     check(card.jobs[0].n_chunks == 10_240, "the Fig. 6 job is not 10,240")
     check(sum(j.retried_chunks for j in card.jobs) > 0,
           "the VM failure forced no retries")
@@ -526,8 +558,9 @@ def phase_sim(jobs, faults):
         cpu_wall_s=round(cpu_wall, 4), asdict_equal_cpu=True,
         trace_equal_cpu=True, trace_events=len(card_tr),
         retried=[j.retried_chunks for j in card.jobs],
-        relay1_events=tight.events, relay1_seq_cascades=int(fired),
-        relay1_wall_s=round(tight_wall, 4),
+        graphs=graphs, relay1_events=tight.events,
+        relay1_seq_cascades=int(fired), relay1_wall_s=round(tight_wall, 4),
+        relay1_graphs=tight_graphs,
         f32_sim_time_s=f32.time_s, f32_events=f32.events)
 
 
@@ -562,39 +595,82 @@ def big_jobs(top):
     )]
 
 
+@contextlib.contextmanager
+def timed_blocks():
+    """CUDA events on the sim's stream around every block of iterations it
+    runs (a graph replay, or the eager first use of a block length);
+    yields the list of (start, end) event pairs."""
+    from repro_torch.transfer import flowsim_torch
+
+    spans, run = [], flowsim_torch._Blocks.run
+
+    def timed(self, n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(self, n)
+        b.record()
+        spans.append((a, b))
+
+    flowsim_torch._Blocks.run = timed
+    try:
+        yield spans
+    finally:
+        flowsim_torch._Blocks.run = run
+
+
 def phase_sim_1e5(jobs):
+    """The 1e5-chunk sim on the card. Each block of iterations is
+    bracketed by CUDA events, so the card's busy time is the sum of the
+    blocks' spans on its own clock, in this run: the idle share is the
+    rest of the run's wall (set-up, the host's flag reads, scripted
+    events and sequential cascades between blocks), and the loop's idle
+    share the rest of the span from the first block's start to the last
+    block's end. A span counts a graph's gaps between its kernels as
+    busy, so both shares are what the host leaves the card idle."""
     from repro_torch.obs.metrics import REGISTRY
     from repro_torch.transfer import simulate
 
     wf = REGISTRY.counter("kernels.waterfill_f64.launches")
     ss = REGISTRY.counter("kernels.segsum_ordered.launches")
-    n0, s0 = wf.value, ss.value
-    t0 = time.perf_counter()
-    res = simulate(jobs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    n0, s0, g0 = wf.value, ss.value, graph_counts()
+    with timed_blocks() as spans:
+        t0 = time.perf_counter()
+        res = simulate(jobs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    graphs = graph_delta(g0)
+    busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+    loop_ms = spans[0][0].elapsed_time(spans[-1][1])
     job = res.jobs[0]
     check(job.status == "done" and job.chunks_delivered == BIG_CHUNKS,
           "the 1e5-chunk job did not deliver every chunk")
     launches = int(wf.value - n0)
-    check(launches > 0, "the water-filling kernel was never launched")
+    check(launches >= res.events and launches == graphs["iterations"],
+          "water-filling launches are not one per iteration run")
+    check(graphs["graph_replays"] > 0, "the sim replayed no CUDA graph")
     say("sim_1e5", chunks=job.n_chunks, events=res.events,
         sim_time_s=res.time_s, wall_s=round(wall, 3),
         events_per_s=round(res.events / wall, 1),
-        waterfill_launches=launches, segsum_launches=int(ss.value - s0))
+        waterfill_launches=launches, segsum_launches=int(ss.value - s0),
+        graphs=graphs, blocks=len(spans), blocks_device_s=busy_ms / 1e3,
+        device_us_per_iteration=busy_ms * 1e3 / graphs["iterations"],
+        loop_s=loop_ms / 1e3, device_idle_share=1.0 - busy_ms / 1e3 / wall,
+        device_idle_share_loop=1.0 - busy_ms / loop_ms)
 
 
 def phase_profile(jobs):
     """A steady window of the 1e5-chunk sim's event loop under
-    torch.profiler: how busy the card is, and with what. The window runs
-    from the first to the last water-filling launch (one per iteration),
-    so the scenario's set-up stays out of it. The same horizon also runs
-    unprofiled on the card and on the CPU: the unprofiled idle share is the
-    profiled run's device time over the unprofiled wall, and the CPU run
-    (held equal to the card's) is the baseline a faster loop must beat."""
+    torch.profiler: what the card runs, kernel by kernel. On the card the
+    first block of iterations runs eagerly and every later block is a
+    replay of its CUDA graph, so the window runs from the first replayed
+    water-filling launch (one per iteration) to the last. The profiler's
+    records slow the replays, so the window's idle share is the profiled
+    run's own, not a run's (``[sim_1e5]`` measures that). The same horizon
+    also runs on the card and on the CPU, held equal."""
     from repro_torch.transfer import simulate
 
-    horizon = 8.0  # sim seconds: ~120 iterations of this scenario
+    horizon = 40.0  # sim seconds: ~780 iterations, ~12 blocks of 64
 
     def timed(**kw):
         t0 = time.perf_counter()
@@ -604,34 +680,37 @@ def phase_profile(jobs):
         return res, time.perf_counter() - t0
 
     timed()
+    g0 = graph_counts()
     card, card_wall = timed()
+    graphs = graph_delta(g0)
     timed(device="cpu")
     cpu, cpu_wall = timed(device="cpu")
     same_run(card, cpu, "1e5 horizon window")
     t0 = time.perf_counter()
     res, dev = profiled(lambda: simulate(jobs, horizon_s=horizon))
     wall = time.perf_counter() - t0
-    wf = [(s, e) for n, s, e in dev if "waterfill_kernel" in n]
-    check(len(wf) > 10, "the profiler saw no event loop")
-    lo, hi = min(s for s, _ in wf), max(e for _, e in wf)
+    wf = sorted((s, e) for n, s, e in dev if "waterfill_kernel" in n)
+    check(len(wf) > 2 * SIM_BLOCK, "the profiler saw no kernel launched "
+          f"from a CUDA graph ({len(wf)} water-filling kernels)")
+    lo, hi = wf[SIM_BLOCK][0], wf[-1][1]
+    n_it = len(wf) - SIM_BLOCK
     win = [(n, s, e) for n, s, e in dev if s >= lo and e <= hi]
     busy = sum(e - s for _, s, e in win)
-    busy_all = sum(e - s for _, s, e in dev)
     by_name: dict = {}
     for n, s, e in win:
         key = n.split("(")[0].replace("void ", "")[:60]
         by_name[key] = by_name.get(key, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     say("profile", sim_events=res.events, loop_iterations=len(wf),
+        replayed_iterations=n_it,
         window_us=round(hi - lo, 1), device_busy_us=round(busy, 1),
         device_idle_share_profiled=round(1.0 - busy / (hi - lo), 4),
-        device_idle_share_unprofiled=round(
-            1.0 - busy_all / (card_wall * 1e6), 4),
-        device_us_per_iteration=round(busy / len(wf), 2),
-        launches_per_iteration=round(len(win) / len(wf), 1),
-        wall_us_per_iteration_profiled=round((hi - lo) / len(wf), 1),
+        device_us_per_iteration=round(busy / n_it, 2),
+        launches_per_iteration=round(len(win) / n_it, 1),
+        wall_us_per_iteration_profiled=round((hi - lo) / n_it, 1),
         profiled_wall_s=round(wall, 3),
         card_wall_s=card_wall, card_events_per_s=card.events / card_wall,
+        card_graphs=graphs,
         cpu_wall_s=cpu_wall, cpu_events_per_s=cpu.events / cpu_wall,
         top_device_us={k: round(v, 1) for k, v in top})
 
@@ -667,12 +746,13 @@ def phase_kernels(shapes, dev, launches, errs):
             got = kernel().cpu()
             want = ops.waterfill_rates(**to_cpu(args), precision=precision)
             errs[name] = max(errs[name], float((got - want).abs().max()))
-            rounds = live_rounds(args, precision)
+            rounds, chain = live_rounds(args, precision)
             bound, by = wf_bound(args, rounds, precision)
+            ms = kernel_ms(kernel, 50)
             per_shape[label] = dict(
                 conns=args["caps"].shape[0], vms=args["eg_cap"].shape[0],
-                edges=args["ed_cap"].shape[0], rounds=rounds,
-                ms=kernel_ms(kernel, 50),
+                edges=args["ed_cap"].shape[0], rounds=rounds, chain=chain,
+                ms=ms, ns_per_chained_add=ms * 1e6 / max(chain, 1),
                 call_ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 5),
                 bound_ms=bound, bound_by=by,
             )
@@ -703,11 +783,14 @@ def phase_kernels(shapes, dev, launches, errs):
     def segsum():
         return ops.segment_sum_ordered(w, je, nseg, lists=lists)
 
+    seg_ms = kernel_ms(segsum, 50)
+    # the longest segment's nonzero terms: its chain of dependent adds
+    chain = int(np.bincount(je.cpu().numpy()[w.cpu().numpy() != 0]).max())
     out.append(dict(
         name="segsum_ordered_f64", route="cuda", source=WF_SOURCE,
         replaces=SEGSUM_REPLACES, launches=launches["segsum_ordered_f64"],
         max_abs_err=errs["segsum_ordered_f64"],
-        ms=kernel_ms(segsum, 50),
+        ms=seg_ms,
         plain_ms=cuda_ms(lambda: ref.segment_sum_ordered(w, je, nseg), 500),
         bound_ms=max(t_b, t_o) * 1e3,
         bound_by="bytes" if t_b >= t_o else "operations",
@@ -716,7 +799,10 @@ def phase_kernels(shapes, dev, launches, errs):
             .index_add_(0, je, w), 500),
         call_ms=cuda_ms(segsum, 500),
     ))
-    extra["segsum_ordered_f64"] = {"lanes": n, "segments": nseg}
+    extra["segsum_ordered_f64"] = {
+        "lanes": n, "segments": nseg, "chain": chain,
+        "ns_per_chained_add": seg_ms * 1e6 / chain,
+    }
     return out, extra
 
 
@@ -1712,9 +1798,9 @@ def main(argv=None) -> int:
         check(n > 0, f"{k} was not launched on the main path")
 
     phase_profile(big)
-    kernels, shapes = phase_kernels({
-        "sim": materialize_jobs(jobs), "sim_1e5": materialize_jobs(big),
-    }, dev, launches, errs)
+    sim_shapes = {"sim": materialize_jobs(jobs),
+                  "sim_1e5": materialize_jobs(big)}
+    kernels, shapes = phase_kernels(sim_shapes, dev, launches, errs)
     kernels += model_path(errs)
     kernels += train_path(errs)
     line = {"kernels": kernels}

@@ -1,22 +1,61 @@
-// Max-min water-filling for Hopper (sm_90a), one thread block per solve.
+// Max-min water-filling for Hopper (sm_90a), one thread block per solve,
+// and the sim's ordered segment sum.
 //
 // Replaces the TPU kernel kernels/waterfill/waterfill.py::_waterfill_kernel
 // of the reference package (launched by waterfill_8x), and on the sim's
 // default path its f64 twin kernels/waterfill/ref.py::masked_maxmin_rates.
 //
 // What bounds it on this card: not bytes (a solve reads a few kB) and not
-// arithmetic (a few hundred flops per connection). A solve is a chain of
-// up to 2*nv + ne + 4 dependent rounds, each of which needs every
-// connection's share before any can be fixed, and every fixed rate before
-// the budgets move; on top of that sits one launch per solve. So the bound
-// is launch latency plus the serial round chain. The design answers both:
-// the whole solve is one launch into one block, every per-connection,
-// per-VM and per-edge array lives in shared memory for all rounds, rounds
-// are separated by __syncthreads only, and the loop exits as soon as no
-// connection is left unfixed. The sim passes a device flag `changed`; when
-// it is 0 the kernel copies the cached rates, so the caller never reads
-// the flag on the host. The TPU layout (one-hot scatter matmuls, 8-row
-// replicated tiles) is not carried over: here segment sums walk CSR lists.
+// arithmetic (a few hundred flops per connection). It is the chain of
+// dependent f64 adds that bitwise parity forces: in every live round each
+// VM/edge budget loses 0 + r_i0 + r_i1 + ... of its newly fixed rates, in
+// ascending connection order, as jax.ops.segment_sum and numpy's bincount
+// add them. A segment's sum cannot be split or reassociated, so the
+// longest segment's chain (the edge, which may hold every lane) sets the
+// time of a round; launch latency comes on top, once per solve.
+//
+// What the design does about it:
+//   * the solve's state lives in shared memory for the whole solve: caps,
+//     rates and a state byte per lane (17 bytes at f64), budgets, fair
+//     shares and unfixed counts per segment, and each warp's run of new
+//     rates (24.75 KB at f64), so one block takes ~12,100 lanes. The lanes'
+//     segment ids and the CSR lists stay in device memory and are read
+//     through L1, which holds them at the sims' sizes: staging them in
+//     shared memory measured no faster;
+//   * each segment's unfixed count is set once and then loses the lanes
+//     fixed in it (integers, exact), and the new fair share bud / cnt is
+//     computed where the budget moves, so no round recounts;
+//   * three barriers a round: (A) a lane pass computes share, cap-hit and
+//     minimum, reduced in one combined step (each unfixed lane parks its
+//     share in its rate slot until it is fixed); (B) each thread fixes its
+//     own lanes and marks them new; (C) the segment pass;
+//   * in (C) every segment takes a warp, from a counter, edges first (the
+//     edge may hold every lane, so it starts first and the VMs' segments
+//     fill the other warps: twelve warps, so that the sim's 40 VM segments
+//     come to about four a warp). The warp walks the segment's list 32
+//     lanes a step, with the next steps' ids and lane states loaded ahead,
+//     and compacts the nonzero new rates in lane order (__ballot_sync +
+//     __popc) into its run in shared memory; lane 0 folds the run with the
+//     next eight loads issued before each eight adds, so the chain waits
+//     on one f64 add per nonzero term. Skipping zeros is exact: the fold
+//     starts at +0.0 and every term is >= +0.0, so fl(a + 0.0) == a.
+//     Measured slower on the card: the fold decided per 32-lane step by
+//     the segment's own warp through a ring; a thread per segment reading
+//     through the lane ids (each term waits on two dependent loads); a run
+//     of 16-bit lane ids folded through the ids; folding 8-term groups
+//     flagged nonzero by a ballot. Measured faster at the sim's shape
+//     (~14 against ~16 us) but at 64 bytes a lane (~3,600 lanes a solve):
+//     every operand staged and each round's rates scattered to every
+//     list position, so that a thread per short segment folds a
+//     contiguous run;
+//   * the lane pass of the next round cannot start under a long fold: every
+//     lane reads its edge's new share, which the edge's fold produces last;
+//   * thread-block clusters are not needed: a solve of a few thousand lanes
+//     fits one block's shared memory, and the chain is serial anyway.
+// The sim passes a device flag `changed`; when it is 0 the kernel copies
+// the cached rates, so the caller never reads the flag on the host. The TPU
+// layout (one-hot scatter matmuls, 8-row replicated tiles) is not carried
+// over: here segment sums walk CSR lists.
 //
 // Two instantiations of one template:
 //   double — the sim's parity solver: +inf shares, eps 1e-12, round bound
@@ -29,8 +68,16 @@
 //            the loop may exit early).
 //
 // segsum_ordered_f64 is the sim's ordered segment sum: out[s] = 0 + v[i0] +
-// v[i1] + ... over a segment's lanes in ascending order, one warp per
-// segment. CUDA's index_add_ adds with atomics in no fixed order.
+// v[i1] + ... over a segment's lanes in ascending order, one block of four
+// warps per segment. The block loads the segment's values into shared
+// memory with every load in flight at once, compacts the nonzero ones in
+// lane order with every warp at once (per-step __ballot_sync counts, a
+// warp's prefix over them, then the scatter), and one thread folds the run
+// with the next eight loads issued before each eight adds: the chain is one
+// f64 add per nonzero term. Skipping zeros of either sign is exact for
+// terms of any sign: a sum is -0.0 only when both addends are, so a fold
+// that starts at +0.0 never holds -0.0, and fl(a + 0.0) == fl(a - 0.0) == a
+// for every other a. CUDA's index_add_ adds with atomics in no fixed order.
 //
 // Entry points have a plain C interface (ctypes); each returns the CUDA
 // error code of its launch and neither synchronises nor allocates.
@@ -41,10 +88,13 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 384;  // timed against 256, 512 and 768
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kMaxSmem = 232448;  // 227 KB per block on sm_90
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRun = 256;  // new rates a warp compacts before lane 0 folds
+constexpr int kChunk = 2048;  // segment values a segsum block stages at once
+constexpr int kSegsumThreads = 128;
 
 template <typename T>
 struct WF;
@@ -68,36 +118,53 @@ template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) { return b < a ? b : a; }
 
 __device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return __reduce_add_sync(kFull, v);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = tmin(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// Block-wide reductions; every thread gets the result.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, T* scratch, Op op) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  T r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r = op(r, scratch[w]);
-  __syncthreads();
-  return r;
+// Fold run[0, n) into acc, in order, in groups of eight: the next group's
+// loads are issued before this group's adds. run must be readable up to
+// n + 8 (its tail is padded); values past n are never added.
+template <typename T>
+__device__ __forceinline__ T fold_run(const T* run, int n, T acc) {
+  T cur[8], nxt[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) cur[u] = run[u];
+  int k = 0;
+  for (; k + 8 <= n; k += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) nxt[u] = run[k + 8 + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = acc + cur[u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) cur[u] = nxt[u];
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) acc = acc + (u < n - k ? cur[u] : T(0));
+  return acc;
 }
 
+// Dynamic shared memory of one solve, in bytes: reals first (the
+// reduction's minima, cap and rate per lane, each warp's run of new rates
+// with fold_run's read-ahead, budget and share per segment), then ints
+// (reduction words, the segment counter, unfixed counts per segment),
+// then each lane's state byte.
 size_t smem_bytes(int nc, int nv, int ne, int elem) {
-  // cap, rate, share per conn; budget + share per segment; state per conn
-  size_t nseg = 2 * (size_t)nv + (size_t)ne;
-  size_t b = (3 * (size_t)nc + 2 * nseg) * (size_t)elem + (size_t)nc;
+  const size_t nseg = 2 * (size_t)nv + (size_t)ne;
+  const size_t reals = (size_t)kWarps * (1 + kRun + 8) + 2 * (size_t)nc
+                       + 2 * nseg;
+  const size_t ints = (size_t)kWarps + 1 + nseg;
+  const size_t b = reals * (size_t)elem + ints * 4 + (size_t)nc;
   return (b + 15) & ~(size_t)15;
 }
 
-// Dynamic shared memory one block may take: the opt-in limit less the
-// kernel's static reduction scratch (red_t, red_i), rounded up to 16 B.
-size_t smem_limit(int elem) {
-  const size_t stat = (size_t)kWarps * ((size_t)elem + sizeof(int));
-  return kMaxSmem - ((stat + 15) & ~(size_t)15);
-}
+// Dynamic shared memory one block may take (the kernel has no static).
+size_t smem_limit(int) { return kMaxSmem; }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -110,8 +177,6 @@ waterfill_kernel(const T* __restrict__ caps, const int* __restrict__ src,
                  T* __restrict__ out, int nc, int nv, int ne, int ne_bound,
                  int n_iters) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T red_t[kWarps];
-  __shared__ int red_i[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   if (changed != nullptr && *changed == 0) {  // membership unchanged
@@ -120,126 +185,231 @@ waterfill_kernel(const T* __restrict__ caps, const int* __restrict__ src,
   }
 
   const int nseg = 2 * nv + ne;
-  T* cap = reinterpret_cast<T*>(smem);
+  T* red_lo = reinterpret_cast<T*>(smem);  // [kWarps]
+  T* cap = red_lo + kWarps;
+  // a fixed lane's rate; an unfixed lane's share of the round
   T* rate = cap + nc;
-  T* share = rate + nc;
-  T* bud = share + nc;        // [nseg] egress, ingress, edge budgets
-  T* seg_share = bud + nseg;  // [nseg]
-  // st: bit 0 = unfixed active lane, bit 1 = fixed in this round
-  uint8_t* st = reinterpret_cast<uint8_t*>(seg_share + nseg);
+  T* run = rate + nc + warp * (kRun + 8);  // this warp's [kRun + 8]
+  T* bud = rate + nc + kWarps * (kRun + 8);  // [nseg] egress, ingress, edge
+  T* seg_share = bud + nseg;                 // [nseg]
+  int* red_n = reinterpret_cast<int*>(seg_share + nseg);  // [kWarps]
+  int* next_seg = red_n + kWarps;  // the segment counter of a pass
+  int* cnt = next_seg + 1;         // [nseg] unfixed lanes
+  // st: 1 = unfixed active lane, 2 = fixed this round, 0 = fixed earlier or
+  // inactive
+  uint8_t* st = reinterpret_cast<uint8_t*>(cnt + nseg);
+  const unsigned lt = (1u << lane) - 1u;
 
-  auto imax = [](int a, int b) { return a > b ? a : b; };
-  auto isum = [](int a, int b) { return a + b; };
-  auto ior = [](int a, int b) { return a | b; };
-  auto fmin_ = [](T a, T b) { return tmin(a, b); };
-
-  int vmax = -1, n_act = 0;
+  // ---- stage the solve's state in shared memory once
+  int vmax = -1;
+#pragma unroll 4
   for (int c = tid; c < nc; c += kThreads) {
     cap[c] = caps[c];
     rate[c] = T(0);
     const uint8_t a = active[c] != 0;
     st[c] = a;
-    if (a) {
-      vmax = imax(vmax, imax(src[c], dst[c]));
-      ++n_act;
-    }
+    if (a) vmax = max(vmax, max(src[c], dst[c]));
   }
   for (int s = tid; s < nseg; s += kThreads)
     bud[s] = s < nv ? eg0[s] : (s < 2 * nv ? in0[s - nv] : ed0[s - 2 * nv]);
-  vmax = block_reduce(vmax, red_i, imax);
-  int n_un = block_reduce(n_act, red_i, isum);
+  if (tid == 0) *next_seg = 0;
+  for (int o = 16; o > 0; o >>= 1)
+    vmax = max(vmax, __shfl_xor_sync(kFull, vmax, o));
+  if (lane == 0) red_n[warp] = vmax;
+  __syncthreads();
+  for (int w = 0; w < kWarps; ++w) vmax = max(vmax, red_n[w]);
   const int bound = n_iters >= 0 ? n_iters : 2 * (vmax + 1) + ne_bound + 4;
 
-  for (int k = 0; k < bound && n_un > 0; ++k) {
-    // (1) unfixed counts and fair share of every segment, a warp each
-    for (int s = warp; s < nseg; s += kWarps) {
-      const Csr L = s < nv ? cs : (s < 2 * nv ? cd : ce);
-      const int row = s < nv ? s : (s < 2 * nv ? s - nv : s - 2 * nv);
-      const int b = L.off[row], e = L.off[row + 1];
-      int cnt = 0;
-      for (int j = b + lane; j < e; j += 32) cnt += st[L.idx[j]] & 1;
-      cnt = warp_sum(cnt);
-      if (lane == 0) seg_share[s] = cnt > 0 ? bud[s] / T(cnt) : WF<T>::none();
-    }
-    __syncthreads();
+  // Segments go to warps from a counter, edges first (they hold the most
+  // lanes); the result does not depend on which warp takes which.
+  auto take = [&]() {
+    int q = 0;
+    if (lane == 0) q = atomicAdd(next_seg, 1);
+    return nseg - 1 - __shfl_sync(kFull, q, 0);
+  };
+  // segment s's CSR list
+  auto list = [&](int s, int& b, int& e) -> const int* {
+    const Csr& c = s < nv ? cs : (s < 2 * nv ? cd : ce);
+    const int r = s < nv ? s : (s < 2 * nv ? s - nv : s - 2 * nv);
+    b = c.off[r];
+    e = c.off[r + 1];
+    return c.idx;
+  };
+  auto set_share = [&](int s, int n) {
+    cnt[s] = n;
+    seg_share[s] = n > 0 ? bud[s] / T(n) : WF<T>::none();
+  };
+  // unfixed count and fair share of every segment
+  for (int s = take(); s >= 0; s = take()) {
+    int b, e;
+    const int* idx = list(s, b, e);
+    int n = 0;
+    for (int j = b + lane; j < e; j += 32) n += st[idx[j]];
+    n = warp_sum(n);
+    if (lane == 0) set_share(s, n);
+  }
+  __syncthreads();
 
-    // (2) share per connection, (3) cap-hit flag and threshold minimum
-    int hit = 0;
+  const T eps = WF<T>::eps();
+  for (int k = 0; k < bound; ++k) {
+    // (A) share, cap-hit and minimum of the lanes still unfixed; last
+    // round's new fixes become old ones
+    int hit = 0, un = 0;
     T lo = WF<T>::none();
     for (int c = tid; c < nc; c += kThreads) {
-      if (!(st[c] & 1)) continue;
+      const uint8_t sc = st[c];
+      if (sc != 1) {
+        if (sc == 2) st[c] = 0;
+        continue;
+      }
       T sh = tmin(seg_share[src[c]], seg_share[nv + dst[c]]);
       if (ne > 0) sh = tmin(sh, seg_share[2 * nv + eid[c]]);
-      share[c] = sh;
-      hit |= cap[c] <= sh + WF<T>::eps();
+      rate[c] = sh;
+      hit |= cap[c] <= sh + eps;
       lo = tmin(lo, sh);
+      ++un;
     }
-    const int anyc = block_reduce(hit, red_i, ior);
-    const T thresh = block_reduce(lo, red_t, fmin_);
+    hit = __any_sync(kFull, hit);
+    un = warp_sum(un);
+    lo = warp_min(lo);
+    if (lane == 0) {
+      red_lo[warp] = lo;
+      red_n[warp] = (un << 1) | hit;
+    }
+    if (tid == 0) *next_seg = 0;
+    __syncthreads();
+    int n_un = 0, hits = 0;
+    T thresh = WF<T>::none();
+    for (int w = 0; w < kWarps; ++w) {
+      n_un += red_n[w] >> 1;
+      hits |= red_n[w] & 1;
+      thresh = tmin(thresh, red_lo[w]);
+    }
+    if (n_un == 0) break;
+    const bool anyc = hits != 0;
 
-    // (4) fix the newly bound connections
-    int fixed_now = 0;
+    // (B) fix the lanes this round binds
     for (int c = tid; c < nc; c += kThreads) {
-      if (!(st[c] & 1)) continue;
-      const bool nw = anyc ? cap[c] <= share[c] + WF<T>::eps()
-                           : share[c] <= thresh + WF<T>::eps();
-      if (nw) {
-        rate[c] = anyc ? cap[c] : share[c];
+      if (st[c] != 1) continue;
+      const T sh = rate[c], cp = cap[c];
+      if (anyc ? cp <= sh + eps : sh <= thresh + eps) {
+        rate[c] = anyc ? cp : sh;
         st[c] = 2;
-        ++fixed_now;
       }
     }
-    n_un -= block_reduce(fixed_now, red_i, isum);
+    __syncthreads();
 
-    // (5) budgets lose the new rates, summed in ascending connection order
-    for (int s = warp; s < nseg; s += kWarps) {
-      const Csr L = s < nv ? cs : (s < 2 * nv ? cd : ce);
-      const int row = s < nv ? s : (s < 2 * nv ? s - nv : s - 2 * nv);
-      const int b = L.off[row], e = L.off[row + 1];
+    // (C) budgets lose the new rates, summed in ascending lane order;
+    // counts lose the newly fixed lanes; new fair shares. A warp walks its
+    // segment's list 32 lanes a step (the ids two steps ahead, the lanes'
+    // state and rates one step ahead), compacts the nonzero new rates in
+    // lane order into its run, and lane 0 folds the run whenever it could
+    // not take another step, and at the end.
+    for (int s = take(); s >= 0; s = take()) {
+      int b, e;
+      const int* idx = list(s, b, e);
+      int nb = 0, nnew = 0;
       T acc = T(0);
+      int c1 = b + lane < e ? idx[b + lane] : 0;
+      int c2 = b + 32 + lane < e ? idx[b + 32 + lane] : 0;
+      uint8_t f1 = st[c1];
+      T v1 = rate[c1];
       for (int base = b; base < e; base += 32) {
-        const int j = base + lane;
-        const int c = j < e ? L.idx[j] : 0;
-        const bool nw = j < e && (st[c] & 2);
-        const T r = nw ? rate[c] : T(0);
-        unsigned m = __ballot_sync(kFull, nw);
-        while (m) {  // warp-uniform: lanes in order, zeros skipped
-          const int bit = __ffs(m) - 1;
-          acc = acc + __shfl_sync(kFull, r, bit);
-          m &= m - 1;
+        const bool f = base + lane < e && f1 == 2;
+        const T v = f ? v1 : T(0);
+        const int j = base + 64 + lane;
+        const int c3 = j < e ? idx[j] : 0;
+        f1 = st[c2];
+        v1 = rate[c2];
+        c2 = c3;
+        nnew += __popc(__ballot_sync(kFull, f));
+        const unsigned m = __ballot_sync(kFull, v != T(0));
+        if (v != T(0)) run[nb + __popc(m & lt)] = v;
+        nb += __popc(m);
+        if (nb > kRun - 32) {
+          __syncwarp();
+          if (lane == 0) acc = fold_run(run, nb, acc);
+          __syncwarp();
+          nb = 0;
         }
       }
+      __syncwarp();
       if (lane == 0) {
-        const T x = bud[s] - acc;
+        acc = fold_run(run, nb, acc);
+        T x = bud[s] - acc;
         bud[s] = x < T(0) ? T(0) : x;
+        set_share(s, cnt[s] - nnew);
       }
+      __syncwarp();
     }
     __syncthreads();
-    for (int c = tid; c < nc; c += kThreads)
-      if (st[c] & 2) st[c] = 0;
-    __syncthreads();
   }
-  for (int c = tid; c < nc; c += kThreads) out[c] = rate[c];
+  for (int c = tid; c < nc; c += kThreads)
+    out[c] = st[c] == 1 ? T(0) : rate[c];
 }
 
-__global__ void segsum_ordered_kernel(const double* __restrict__ vals,
-                                      const int* __restrict__ off,
-                                      const int* __restrict__ idx,
-                                      double* __restrict__ out, int nseg) {
-  const int lane = threadIdx.x & 31;
-  const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int nw = (gridDim.x * blockDim.x) >> 5;
-  for (int s = w0; s < nseg; s += nw) {
-    const int b = off[s], e = off[s + 1];
-    double acc = 0.0;
-    for (int base = b; base < e; base += 32) {
-      const int j = base + lane;
-      const double v = j < e ? vals[idx[j]] : 0.0;
-      const int n = e - base < 32 ? e - base : 32;
-      for (int k = 0; k < n; ++k) acc = acc + __shfl_sync(kFull, v, k);
+__global__ void __launch_bounds__(kSegsumThreads)
+segsum_ordered_kernel(const double* __restrict__ vals,
+                      const int* __restrict__ off,
+                      const int* __restrict__ idx, double* __restrict__ out) {
+  __shared__ double buf[kChunk];
+  __shared__ double run[kChunk + 8];  // + fold_run's read-ahead
+  __shared__ int step_off[kChunk / 32 + 1];
+  const int s = blockIdx.x, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int nwarps = kSegsumThreads / 32;
+  const unsigned lt = (1u << lane) - 1u;
+  const int b = off[s], e = off[s + 1];
+  double acc = 0.0;
+  for (int c0 = b; c0 < e; c0 += kChunk) {
+    const int n = min(kChunk, e - c0), nsteps = (n + 31) >> 5;
+    // sixteen indices a thread, then their sixteen values, all in flight
+    for (int i0 = threadIdx.x; i0 < n; i0 += 16 * kSegsumThreads) {
+      int ix[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int i = i0 + u * kSegsumThreads;
+        ix[u] = i < n ? idx[c0 + i] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (ix[u] >= 0) buf[i0 + u * kSegsumThreads] = vals[ix[u]];
     }
-    if (lane == 0) out[s] = acc;
+    __syncthreads();
+    // nonzero values in each 32-lane step, a warp per step
+    for (int t = warp; t < nsteps; t += nwarps) {
+      const int i = 32 * t + lane;
+      const unsigned m = __ballot_sync(kFull, i < n && buf[i] != 0.0);
+      if (lane == 0) step_off[t] = __popc(m);
+    }
+    __syncthreads();
+    if (warp == 0) {  // exclusive prefix of the counts: two steps a lane
+      const int a0 = 2 * lane < nsteps ? step_off[2 * lane] : 0;
+      const int a1 = 2 * lane + 1 < nsteps ? step_off[2 * lane + 1] : 0;
+      int x = a0 + a1;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      __syncwarp();
+      if (2 * lane < nsteps) step_off[2 * lane] = x - a0 - a1;
+      if (2 * lane + 1 < nsteps) step_off[2 * lane + 1] = x - a1;
+      if (lane == 31) step_off[nsteps] = x;
+    }
+    __syncthreads();
+    // the nonzero values compacted in lane order, every step at once
+    for (int t = warp; t < nsteps; t += nwarps) {
+      const int i = 32 * t + lane;
+      const double v = i < n ? buf[i] : 0.0;
+      const bool nz = i < n && v != 0.0;
+      const unsigned m = __ballot_sync(kFull, nz);
+      if (nz) run[step_off[t] + __popc(m & lt)] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) acc = fold_run(run, step_off[nsteps], acc);
+    __syncthreads();
   }
+  if (threadIdx.x == 0) out[s] = acc;
 }
 
 template <typename T>
@@ -311,11 +481,8 @@ int waterfill_f32(const void* caps, const void* src, const void* dst,
 int segsum_ordered_f64(const void* vals, const void* off, const void* idx,
                        void* out, int nseg, void* stream) {
   if (nseg <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (nseg * 32 + threads - 1) / threads;
-  segsum_ordered_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const double*)vals, (const int*)off, (const int*)idx, (double*)out,
-      nseg);
+  segsum_ordered_kernel<<<nseg, kSegsumThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)vals, (const int*)off, (const int*)idx, (double*)out);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,11 @@ version (``ref.py``) for tensors on the CPU and launch the CUDA kernel
 and no fallback. Each launch adds one to its kernel's counter in the
 port's metrics registry (``kernels.waterfill_f64.launches``,
 ``kernels.waterfill_f32.launches``, ``kernels.segsum_ordered.launches``);
-CPU calls do not count.
+CPU calls do not count. A call under CUDA stream capture records the
+kernel into a graph and launches nothing: it adds one to the kernel's
+``.recorded`` counter instead, and whoever replays the graph adds the
+launches it recorded to ``.launches`` at each replay (``GRAPH_COUNTERS``
+pairs the two).
 
 The kernels walk CSR lists (row -> ascending connection lanes) instead of
 one-hot matrices. The maps they encode are constant for a scenario, so a
@@ -20,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.metrics import REGISTRY, Counter
 
 from . import ref
 
@@ -29,6 +33,21 @@ _launches = {
     p: REGISTRY.counter(f"kernels.waterfill_{p}.launches") for p in _DTYPES
 }
 _segsum_launches = REGISTRY.counter("kernels.segsum_ordered.launches")
+# (recorded under capture, launched) counter pairs of every kernel here
+GRAPH_COUNTERS = tuple(
+    (REGISTRY.counter(c.name.replace(".launches", ".recorded")), c)
+    for c in (*_launches.values(), _segsum_launches)
+)
+_recorded = {c.name: r for r, c in GRAPH_COUNTERS}
+
+
+def _count(launches: Counter) -> None:
+    """One call that launched (or, under stream capture, recorded) its
+    kernel."""
+    if torch.cuda.is_current_stream_capturing():
+        _recorded[launches.name].inc()
+    else:
+        launches.inc()
 
 
 class Segments(NamedTuple):
@@ -175,7 +194,7 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     )
     if rc != 0:
         raise RuntimeError(f"waterfill kernel launch failed: CUDA error {rc}")
-    _launches[precision].inc()
+    _count(_launches[precision])
     return out
 
 
@@ -207,5 +226,5 @@ def segment_sum_ordered(values, seg, n_segments: int, *,
     )
     if rc != 0:
         raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {rc}")
-    _segsum_launches.inc()
+    _count(_segsum_launches)
     return out

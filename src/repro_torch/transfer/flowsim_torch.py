@@ -14,9 +14,24 @@ How the loop runs without ``lax.while_loop``:
   * every iteration is fully predicated on a device flag ``go`` (not
     stopped, under the iteration budget, no scripted event due); every
     update, the iteration count included, is masked with it, so a stopped
-    state is a fixed point. The host launches blocks of ``block``
-    iterations and reads the flags once per block, so the result does not
-    depend on the block size;
+    state is a fixed point. The host runs blocks of ``block`` iterations
+    and reads the flags once per block, so the result does not depend on
+    the block size;
+  * on the card each block is one CUDA graph, the counterpart of the
+    reference's compiled ``while_loop`` segment: a graph per block length
+    in use (``block``, and 1, 2, 4, ... after a sequential cascade). The
+    first use of a length in a run runs eagerly, which is also the
+    warm-up (first-call set-up such as the kernels' shared-memory
+    attribute happens there, outside any capture); its second use
+    captures the graph, and that use and every later one replay it, so a
+    length used once costs no capture. A capture or replay error raises;
+    nothing falls back to eager blocks.
+    On the CPU the same blocks run eagerly. The state's tensors keep
+    their storage for the whole run (the host writes them with ``copy_``
+    / ``fill_`` / ``zero_``); the iterations stay functional on a working
+    copy of the state, which the block copies back into the state's own
+    tensors at its end (``_run``). Replays add the launches each graph
+    recorded to the kernels' launch counters (``wf.GRAPH_COUNTERS``);
   * the water-filling solve is behind the device flag ``changed`` (active
     membership moved or the cache was invalidated), which the kernel reads
     itself and answers with the cached rates, so no iteration syncs;
@@ -42,6 +57,7 @@ Exact-semantics notes (each is load-bearing for chunk-for-chunk parity):
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +80,12 @@ _INF = float("inf")
 RATE_SOLVERS = ("f64", "f32")
 # iterations that took the host-side sequential cascade (a relay buffer full)
 _seq_cascades = REGISTRY.counter("sim.seq_cascades")
+_graph_captures = REGISTRY.counter("sim.graph_captures")
+_graph_capture_s = REGISTRY.counter("sim.graph_capture_s")  # + instantiate
+_graph_replays = REGISTRY.counter("sim.graph_replays")
+# predicated loop iterations the device ran, live or frozen (one launch of
+# each sim kernel apiece)
+_iterations = REGISTRY.counter("sim.iterations")
 
 
 class _Sc(NamedTuple):
@@ -245,11 +267,10 @@ def _cascade_seq(st: _St, cn: _Cn, sc: _Sc) -> None:
             prog = True
         if not prog:
             break
-    dev = st.now.device
-    st.chunk_arr = torch.as_tensor(chunk_arr, device=dev)
-    st.remaining = torch.as_tensor(remaining, device=dev)
-    st.q_head = torch.as_tensor(q_head, device=dev)
-    st.relay_occ = torch.as_tensor(relay_occ, device=dev)
+    st.chunk_arr.copy_(torch.from_numpy(chunk_arr))
+    st.remaining.copy_(torch.from_numpy(remaining))
+    st.q_head.copy_(torch.from_numpy(q_head))
+    st.relay_occ.copy_(torch.from_numpy(relay_occ))
 
 
 def _step(st: _St, cn: _Cn, sc: _Sc, go) -> None:
@@ -385,7 +406,72 @@ def _iteration(st: _St, cn: _Cn, sc: _Sc, go, *, seq: bool) -> None:
     _step(st, cn, sc, go)
 
 
-def _segment(st: _St, cn: _Cn, sc: _Sc, block: int) -> None:
+_FIELDS = tuple(f.name for f in dataclasses.fields(_St))
+
+
+def _run(st: _St, cn: _Cn, sc: _Sc, n: int, *, seq: bool = False) -> None:
+    """``n`` loop iterations (``seq``: one iteration with the host-side
+    cascade) on a working copy of the state, written back into the
+    state's own tensors, so their storage never changes."""
+    w = dataclasses.replace(st)
+    for _ in range(n):
+        go = _base_go(w, sc)
+        if not seq:
+            go = go & ~_use_seq(w, sc)
+        _iteration(w, cn, sc, go, seq=seq)
+    for f in _FIELDS:
+        new, own = getattr(w, f), getattr(st, f)
+        if new is not own:
+            own.copy_(new)
+
+
+class _Blocks:
+    """Runs blocks of predicated iterations: eagerly on the CPU; on the
+    card eagerly at a block length's first use in the run, then as one
+    CUDA graph per length, captured at its second use and replayed from
+    then on."""
+
+    def __init__(self, st: _St, cn: _Cn, sc: _Sc):
+        self.st, self.cn, self.sc = st, cn, sc
+        self.graphs: dict = {}  # length -> (graph, launches it records)
+
+    def run(self, n: int) -> None:
+        st, cn, sc = self.st, self.cn, self.sc
+        _iterations.inc(n)
+        if st.now.device.type != "cuda":
+            _run(st, cn, sc, n)
+            return
+        if n not in self.graphs:  # first use: eager, the warm-up
+            self.graphs[n] = None
+            _run(st, cn, sc, n)
+            return
+        if self.graphs[n] is None:
+            self.graphs[n] = self._capture(n)
+        graph, recorded = self.graphs[n]
+        graph.replay()
+        _graph_replays.inc()
+        for (_, launches), k in zip(wf.GRAPH_COUNTERS, recorded):
+            if k:
+                launches.inc(k)
+
+    def _capture(self, n: int):
+        """Capture the block (already run eagerly once); returns (graph,
+        launches it records per counter pair)."""
+        st, cn, sc = self.st, self.cn, self.sc
+        before = [r.value for r, _ in wf.GRAPH_COUNTERS]
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _run(st, cn, sc, n)
+        _graph_capture_s.inc(time.perf_counter() - t0)
+        _graph_captures.inc()
+        recorded = [r.value - b for (r, _), b in zip(wf.GRAPH_COUNTERS,
+                                                       before)]
+        return graph, recorded
+
+
+def _segment(st: _St, cn: _Cn, sc: _Sc, block: int,
+             blocks: _Blocks) -> None:
     """Run loop iterations until a scripted event is due (the host applies
     it and re-enters), a terminal break is reached, or the iteration
     budget is spent. The flags are read after each run of up to ``block``
@@ -394,14 +480,13 @@ def _segment(st: _St, cn: _Cn, sc: _Sc, block: int) -> None:
     device spinning through frozen iterations."""
     n = block
     while True:
-        for _ in range(n):
-            go = _base_go(st, sc) & ~_use_seq(st, sc)
-            _iteration(st, cn, sc, go, seq=False)
+        blocks.run(n)
         flags = torch.stack([_base_go(st, sc), _use_seq(st, sc)]).tolist()
         if not flags[0]:
             return
         if flags[1]:
-            _iteration(st, cn, sc, _base_go(st, sc), seq=True)
+            _run(st, cn, sc, 1, seq=True)
+            _iterations.inc()
             _seq_cascades.inc()
             n = 1
         else:
@@ -495,6 +580,9 @@ def _build(su, cfg, sched, solver: str, dev):
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
+    def own(a, dtype=None):  # state storage of its own (never numpy's)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
     st = _St(
         now=full((), 0.0, f64), it=full((), 0, torch.int64),
         events=full((), 0, torch.int64),
@@ -502,8 +590,8 @@ def _build(su, cfg, sched, solver: str, dev):
         t_sched=full((), sched[0][0] if sched else _INF, f64),
         chunk_arr=full((ncp,), -1, torch.int64),
         remaining=full((ncp,), 0.0, f64),
-        rate_eff=t(padc(su.conn_rate, 0.0), f64),
-        conn_alive=t(conn_valid),
+        rate_eff=own(padc(su.conn_rate, 0.0), f64),
+        conn_alive=own(conn_valid),
         arrived=full((j,), False, torch.bool),
         ready_buf=full((ns + 1, qcap), 0, torch.int64),
         q_head=full((ns + 1,), 0, torch.int64),
@@ -516,7 +604,7 @@ def _build(su, cfg, sched, solver: str, dev):
         finish=full((j,), _INF, f64),
         jeg=full((j * ne,), 0.0, f64), jeo=full((j * ne,), 0.0, f64),
         jeb=full((j * ne,), 0.0, f64),
-        edge_cap=t(edge_cap, f64),
+        edge_cap=own(edge_cap, f64),
         rates=full((ncp,), 0.0, f64),
         last_active=full((ncp,), False, torch.bool),
         rates_valid=full((), False, torch.bool),
@@ -610,15 +698,11 @@ def _host_apply_due(st: _St, su, sched, ptr, vm_alive, retried, use_edge,
         for i, (a, b) in enumerate(su.edges_used):
             if counts[i]:
                 tr.sample(f"link {a}->{b}", applied_t, int(counts[i]))
-    dev = st.now.device
     if applied_t is not None:
         for k in names:
-            setattr(st, k, torch.as_tensor(h[k], device=dev))
-        st.rates_valid = torch.zeros((), dtype=torch.bool, device=dev)
-    st.t_sched = torch.tensor(
-        sched[ptr][0] if ptr < len(sched) else _INF, dtype=torch.float64,
-        device=dev,
-    )
+            getattr(st, k).copy_(torch.from_numpy(h[k]))
+        st.rates_valid.fill_(False)
+    st.t_sched.fill_(sched[ptr][0] if ptr < len(sched) else _INF)
     return ptr
 
 
@@ -731,7 +815,8 @@ def simulate_multi_torch(
     ``events`` scenarios identical to the reference engines). ``device``
     None means the card. ``rate_solver`` "f64" is the parity solver,
     "f32" the TPU kernel's counterpart. ``block`` is the number of
-    iterations between host reads of the loop flags; the result does not
+    iterations between host reads of the loop flags (on the card, the
+    length of the CUDA graph replayed between them); the result does not
     depend on it. Prefer ``transfer.sim.simulate``."""
     from .events import materialize_jobs, sorted_schedule
 
@@ -757,6 +842,7 @@ def simulate_multi_torch(
     retried = np.zeros(len(jobs), dtype=np.int64)
     vm_alive = np.ones(su.vm_eg_cap.shape[0], dtype=bool)
     sc, cn, st = _build(su, cfg, sched, rate_solver, dev)
+    blocks = _Blocks(st, cn, sc)
     ptr = 0
     while True:
         if not bool(st.draining):
@@ -764,7 +850,7 @@ def simulate_multi_torch(
                 st, su, sched, ptr, vm_alive, retried,
                 cfg.link_capacity_scale is not None, sc.qcap, tr,
             )
-        _segment(st, cn, sc, block)
+        _segment(st, cn, sc, block, blocks)
         n_td = int(st.td_n)
         if n_td and tr.enabled:
             td_time = st.td_time.cpu().numpy()
@@ -773,7 +859,7 @@ def simulate_multi_torch(
                 tr.instant("sim.job_done", float(td_time[i]),
                            job=int(td_job[i]))
         if n_td:
-            st.td_n = torch.zeros((), dtype=torch.int64, device=dev)
+            st.td_n.zero_()
         if bool(st.stop) or int(st.it) >= sc.max_events:
             break
         due = not bool(st.draining) and ptr < len(sched) and (

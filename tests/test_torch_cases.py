@@ -1,7 +1,8 @@
 """Seeded numpy inputs shared by the port's kernel tests: the CPU tests
 that hold the plain versions against the reference, and the ``gpu`` tests
 that hold the CUDA kernels against the plain versions (which import no
-jax, so they run on a card's machine without it)."""
+jax, so they run on a card's machine without it). The sim scenarios are
+built with the port alone for the same reason."""
 
 from __future__ import annotations
 
@@ -29,6 +30,137 @@ def waterfill_case(seed, *, with_edges):
     else:
         ne, eid, ed = 0, np.zeros(ncp, dtype=np.int64), None
     return caps, src, dst, eg, inn, eid, ed, active, nv, ne
+
+
+WATERFILL_CHAIN_CASES = ("one_segment", "all_tied", "zero_caps")
+
+
+def waterfill_chain_case(name):
+    """Cases that stress the ordered budget chains, in ``waterfill_case``'s
+    layout, with edges: 300 live lanes among 330 (several per thread, ten
+    32-lane steps per long segment).
+
+    ``one_segment``: one VM sends on every lane over one edge, so a single
+    egress and a single edge segment hold every lane. ``all_tied``: equal
+    caps and budgets, lanes spread evenly, so every lane ties at the
+    threshold and is fixed in the same round. ``zero_caps``: a third of
+    the caps are 0.0 and one VM has no budget, so rounds fix runs of
+    zero rates between nonzero ones."""
+    rng = np.random.default_rng(17)
+    nc, ncp, nv = 300, 330, 6
+    active = np.zeros(ncp, dtype=bool)
+    active[rng.permutation(ncp)[:nc]] = True
+    src = rng.integers(0, nv, ncp)
+    dst = rng.integers(0, nv, ncp)
+    eg = rng.uniform(50.0, 400.0, nv)
+    inn = rng.uniform(50.0, 400.0, nv)
+    caps = np.where(active, rng.uniform(0.5, 8.0, ncp), 123.0)
+    ne, eid, ed = 1, np.zeros(ncp, dtype=np.int64), np.array([300.0])
+    if name == "one_segment":
+        src[:] = 0
+        caps = np.where(active, rng.uniform(5.0, 50.0, ncp), 123.0)
+    elif name == "all_tied":
+        lanes = np.arange(ncp)
+        src, dst = lanes % nv, (lanes + 1) % nv
+        active[:] = True
+        caps = np.full(ncp, 1e3)
+        eg = inn = np.full(nv, 110.0)
+        ed = np.array([1e9])
+    elif name == "zero_caps":
+        caps = np.where(rng.uniform(size=ncp) < 1 / 3, 0.0, caps)
+        eg[2] = 0.0
+        ne = 3
+        eid = rng.integers(0, ne, ncp)
+        ed = np.array([30.0, 400.0, 90.0])
+    else:
+        raise KeyError(name)
+    return caps, src, dst, eg, inn, eid, ed, active, nv, ne
+
+
+SEGSUM_CASES = ("zeros_between", "empty_segments", "long_segment",
+                "equal_run", "many_segments")
+
+
+def segsum_case(name):
+    """(values f64, segment of each lane, segment count) for the ordered
+    segment sum: zeros (and -0.0) between nonzeros, empty segments, one
+    segment of 12,000 lanes, a run of 1,000 equal values whose sum
+    rounds at every step, and 1,000 short segments."""
+    rng = np.random.default_rng(23)
+    if name == "zeros_between":
+        n, nseg = 500, 3
+        v = rng.uniform(0.0, 5.0, n) * (rng.uniform(size=n) < 0.4)
+        v[rng.permutation(n)[:20]] = -0.0
+        return v, rng.integers(0, nseg, n), nseg
+    if name == "empty_segments":
+        n, nseg = 200, 10
+        return rng.uniform(0.0, 5.0, n), rng.choice([1, 4, 9], n), nseg
+    if name == "long_segment":
+        n = 12_000
+        seg = np.zeros(n, dtype=np.int64)
+        seg[rng.permutation(n)[:50]] = 1
+        return rng.uniform(0.0, 3.0, n), seg, 2
+    if name == "equal_run":
+        v = np.full(1500, 0.1)
+        v[:300] = rng.uniform(0.0, 1e6, 300)
+        return v, np.zeros(1500, dtype=np.int64), 1
+    if name == "many_segments":
+        n, nseg = 5000, 1000
+        return rng.uniform(-2.0, 5.0, n), rng.integers(0, nseg, n), nseg
+    raise KeyError(name)
+
+
+SIM_SCENARIOS = ("plain", "every_event", "horizon_cut", "horizon_drain",
+                 "contention_off", "multicast_mix", "tied_arrivals",
+                 "relay_buffer_1")
+_SRC, _DST, _SRC2 = "aws:us-west-2", "aws:eu-central-1", "gcp:us-central1"
+
+
+def sim_scenario(name, top):
+    """(jobs, faults, sim kwargs) of each ``tests/test_sim_engines.py``
+    scenario, and the multicast mix with a relay buffer of one chunk,
+    built with the port's own planner and events (``top`` is the port's
+    ``default_topology()``)."""
+    from repro_torch.core import Planner, PlanSpec, direct_plan
+    from repro_torch.transfer import (GrayFailure, LinkDegrade, LinkRestore,
+                                      TransferJob, VMFailure)
+
+    s, d, s2 = top.index(_SRC), top.index(_DST), top.index(_SRC2)
+
+    def job(src, name, arrival=0.0, volume=0.5):
+        return TransferJob(direct_plan(top, src, _DST, volume, num_vms=2),
+                           name, arrival_s=arrival)
+
+    unicast = [job(_SRC, "a"), job(_SRC, "b", 1.0), job(_SRC2, "c")]
+    if name == "plain":
+        return unicast, [], {}
+    if name == "every_event":
+        return unicast, [
+            LinkDegrade(t_s=0.5, src=s, dst=d, factor=0.5),
+            GrayFailure(t_s=0.8, src=s2, dst=d, factor=0.4),
+            VMFailure(t_s=1.0, job=0, region=s, count=1),
+            LinkRestore(t_s=1.4, src=s, dst=d, factor=2.0),
+            GrayFailure(t_s=1.6, src=s2, dst=d, factor=2.5),
+        ], {}
+    if name in ("horizon_cut", "horizon_drain"):
+        return unicast, [LinkDegrade(t_s=0.4, src=s, dst=d, factor=0.3)], {
+            "horizon_s": 1.0, "drain": name == "horizon_drain"}
+    if name == "contention_off":
+        return unicast, [], {"link_capacity_scale": None}
+    if name in ("multicast_mix", "relay_buffer_1"):
+        mc = Planner(top, max_relays=6).plan(PlanSpec(
+            objective="cost_min", src=_SRC2,
+            dsts=("gcp:europe-west1", "gcp:europe-west3", "gcp:europe-west4"),
+            tput_goal_gbps=2.0, volume_gb=1.0,
+        ))
+        kill = next(int(r) for r in mc.dsts if mc.N[r] >= 1)
+        kw = {"relay_buffer_chunks": 1} if name == "relay_buffer_1" else {}
+        return ([TransferJob(mc, "repl"), job(_SRC, "uni", 0.5)],
+                [VMFailure(t_s=0.8, job=0, region=kill, count=1)], kw)
+    if name == "tied_arrivals":
+        return [job(_SRC, "x", 1.0, 0.25), job(_SRC2, "y", 1.0, 0.25),
+                job(_SRC, "z", 0.0, 0.25)], [], {}
+    raise KeyError(name)
 
 
 def qkv(seed, b, s, h, kv, d):

@@ -14,6 +14,9 @@ quantizer's: bit for bit).
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -24,10 +27,16 @@ from repro_torch.kernels.waterfill import ops as wf_ops
 from repro_torch.obs.metrics import REGISTRY
 
 from test_torch_cases import (
+    SEGSUM_CASES,
+    SIM_SCENARIOS,
+    WATERFILL_CHAIN_CASES,
     qkv,
     quantize_inputs,
+    segsum_case,
+    sim_scenario,
     ssd_inputs,
     waterfill_case,
+    waterfill_chain_case,
 )
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -38,14 +47,8 @@ def _need_card():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("with_edges", [False, True])
-@pytest.mark.parametrize("seed", range(4))
-def test_cuda_kernels_match_plain_versions(seed, with_edges):
-    _need_card()
-    caps, src, dst, eg, inn, eid, ed, active, nv, ne = waterfill_case(
-        seed, with_edges=with_edges
-    )
+def _kernels_match_plain_versions(case):
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = case
     for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         args = [
             torch.as_tensor(caps, dtype=dtype),
@@ -68,6 +71,180 @@ def test_cuda_kernels_match_plain_versions(seed, with_edges):
             assert torch.equal(got, plain)
         else:
             torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_edges", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_cuda_kernels_match_plain_versions(seed, with_edges):
+    _need_card()
+    _kernels_match_plain_versions(waterfill_case(seed, with_edges=with_edges))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WATERFILL_CHAIN_CASES)
+def test_cuda_kernels_match_plain_versions_on_chain_cases(name):
+    _need_card()
+    _kernels_match_plain_versions(waterfill_chain_case(name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SEGSUM_CASES)
+def test_segment_sum_kernel_bitwise_on_its_cases(name):
+    _need_card()
+    vals, seg, nseg = segsum_case(name)
+    v, sg = torch.as_tensor(vals), torch.as_tensor(seg)
+    count = REGISTRY.counter("kernels.segsum_ordered.launches")
+    n0 = count.value
+    got = wf_ops.segment_sum_ordered(v.cuda(), sg.cuda(), nseg).cpu()
+    assert count.value == n0 + 1
+    assert torch.equal(got, wf_ops.segment_sum_ordered(v, sg, nseg))
+
+
+def _largest(fits) -> int:
+    """The largest lane count ``fits`` accepts (it accepts 1)."""
+    nc = 1
+    while fits(2 * nc):
+        nc *= 2
+    lo, hi = nc, 2 * nc  # fits, does not fit
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def _limit_args(nv, ne):
+    rng = np.random.default_rng(29)
+
+    def args(n, dev):
+        return dict(
+            caps=torch.tensor(rng.uniform(0.5, 8.0, n), device=dev),
+            src=torch.tensor(rng.integers(0, nv, n), dtype=torch.int32,
+                             device=dev),
+            dst=torch.tensor(rng.integers(0, nv, n), dtype=torch.int32,
+                             device=dev),
+            eg_cap=torch.tensor(rng.uniform(100, 900, nv), device=dev),
+            in_cap=torch.tensor(rng.uniform(100, 900, nv), device=dev),
+            eid=torch.tensor(rng.integers(0, ne, n), dtype=torch.int32,
+                             device=dev),
+            ed_cap=torch.tensor(rng.uniform(500, 2000, ne), device=dev),
+        )
+
+    return args
+
+
+def _solves_bitwise(a):
+    got = wf_ops.waterfill_rates(**a).cpu()
+    want = wf_ops.waterfill_rates(**{k: t.cpu() for k, t in a.items()})
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_waterfill_at_the_shared_memory_limit_and_past_it():
+    """The most lanes one block's shared memory takes solve bitwise equal
+    to the plain version; one lane more raises before any launch."""
+    _need_card()
+    from repro_torch.kernels.waterfill.build import load
+
+    lib = load()
+    nv, ne = 8, 2
+    limit = lib.waterfill_smem_limit(8)
+    lo = _largest(lambda n: lib.waterfill_smem_bytes(n, nv, ne, 8) <= limit)
+    args = _limit_args(nv, ne)
+    _solves_bitwise(args(lo, "cuda"))
+    with pytest.raises(ValueError, match="shared memory"):
+        wf_ops.waterfill_rates(**args(lo + 1, "cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nv,ne", [(8, 2), (20, 1), (64, 16)])
+def test_waterfill_takes_the_solves_an_all_shared_layout_took(nv, ne):
+    """The kernel takes every f64 solve that a layout of 25 bytes a lane
+    (cap, rate, share, state) and 16 bytes a segment (budget, share) took,
+    beside 192 bytes of static scratch in 227 KB, and solves the largest
+    bitwise."""
+    _need_card()
+    from repro_torch.kernels.waterfill.build import load
+
+    lib = load()
+    nseg = 2 * nv + ne
+
+    def earlier_fits(n):
+        b = (3 * n + 2 * nseg) * 8 + n
+        return ((b + 15) & ~15) <= 232448 - 192
+
+    n = _largest(earlier_fits)
+    assert lib.waterfill_smem_bytes(n, nv, ne, 8) <= lib.waterfill_smem_limit(8)
+    _solves_bitwise(_limit_args(nv, ne)(n, "cuda"))
+
+
+@pytest.fixture(scope="module")
+def port_top():
+    from repro_torch.core import default_topology
+
+    return default_topology()
+
+
+def _sim(jobs, faults, kw, device):
+    from repro_torch.obs import trace
+    from repro_torch.transfer.flowsim_torch import simulate_multi_torch
+
+    tr = trace.enable(capacity=1 << 16)
+    try:
+        res = simulate_multi_torch(jobs, faults, device=device, seed=0, **kw)
+        return res, tr.events()
+    finally:
+        trace.disable()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SIM_SCENARIOS)
+def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
+    """The card's sim (CUDA graphs of the predicated blocks, here of 4
+    iterations so that every scenario replays one) equals the CPU run
+    (blocks of 64) field for field, with the same Skytrace stream, and each
+    kernel's launch counter grows by the iterations the device ran."""
+    _need_card()
+    jobs, faults, kw = sim_scenario(name, port_top)
+    names = ("sim.iterations", "sim.graph_captures", "sim.graph_replays",
+             "kernels.waterfill_f64.launches",
+             "kernels.segsum_ordered.launches")
+    before = {n: REGISTRY.counter(n).value for n in names}
+    got, got_tr = _sim(jobs, faults, dict(kw, block=4), None)
+    torch.cuda.synchronize()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    want, want_tr = _sim(jobs, faults, kw, "cpu")
+    assert got.events == want.events and got.time_s == want.time_s
+    for a, b in zip(got.jobs, want.jobs):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert got_tr == want_tr
+    assert d["sim.graph_captures"] >= 1 and d["sim.graph_replays"] >= 1
+    assert d["sim.iterations"] >= got.events
+    assert d["kernels.waterfill_f64.launches"] == d["sim.iterations"]
+    assert d["kernels.segsum_ordered.launches"] == d["sim.iterations"]
+
+
+@pytest.mark.gpu
+def test_long_sim_replays_its_graphs(port_top):
+    """A run of several blocks replays the captured graph; the replays'
+    launches are counted."""
+    _need_card()
+    from repro_torch.core import direct_plan
+    from repro_torch.transfer import TransferJob, simulate
+
+    jobs = [TransferJob(direct_plan(port_top, "aws:us-west-2",
+                                    "aws:eu-central-1", 64.0, num_vms=2),
+                        "long", chunk_mb=64.0)]
+    names = ("sim.iterations", "sim.graph_replays",
+             "kernels.waterfill_f64.launches")
+    before = {n: REGISTRY.counter(n).value for n in names}
+    res = simulate(jobs)
+    torch.cuda.synchronize()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    assert res.jobs[0].status == "done"
+    assert d["sim.graph_replays"] > 0
+    assert d["kernels.waterfill_f64.launches"] == d["sim.iterations"]
+    assert d["sim.iterations"] >= res.events
 
 
 @pytest.mark.gpu

@@ -35,8 +35,11 @@ from repro_torch import convert
 from repro_torch.core import milp as port_milp
 from repro_torch.obs import trace as port_trace
 from repro_torch.obs.metrics import REGISTRY as PORT_REGISTRY
-from repro_torch.transfer import simulate
+from repro_torch.core import default_topology as port_default_topology
+from repro_torch.transfer import flowsim_torch, simulate
 from repro_torch.transfer.flowsim_torch import simulate_multi_torch
+
+from test_torch_cases import SIM_SCENARIOS, sim_scenario
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "gcp:us-central1"
@@ -69,6 +72,11 @@ def x64_shim():
 @pytest.fixture(scope="module")
 def top():
     return default_topology()
+
+
+@pytest.fixture(scope="module")
+def port_top():
+    return port_default_topology()
 
 
 def _unicast_jobs(top, volume=0.5):
@@ -263,3 +271,51 @@ def test_materialized_layout_matches_reference(top):
                 np.testing.assert_array_equal(u, v)
         else:
             assert x == y, f.name
+
+
+@pytest.mark.parametrize("name", SIM_SCENARIOS)
+def test_port_built_scenarios_are_the_reference_scenarios(name, top,
+                                                          port_top):
+    """``test_torch_cases.sim_scenario`` (the port alone, for the card
+    tests) runs the same as this file's scenarios carried across from the
+    reference."""
+    ref_name = "multicast_mix" if name == "relay_buffer_1" else name
+    jobs, faults, kw = _scenario(ref_name, top)
+    if name == "relay_buffer_1":
+        kw = {"relay_buffer_chunks": 1}
+    want, want_tr = _run_port(jobs, faults, **kw)
+    pj, pf, pkw = sim_scenario(name, port_top)
+    assert pkw == kw
+    tr = port_trace.enable(capacity=1 << 16)
+    try:
+        got = simulate(pj, pf, device="cpu", seed=0, **pkw)
+        got_tr = tr.events()
+    finally:
+        port_trace.disable()
+    _assert_bitwise(got, want)
+    assert got_tr == want_tr
+
+
+@pytest.mark.parametrize("name", SIM_SCENARIOS)
+def test_state_keeps_its_storage_for_the_whole_run(name, port_top,
+                                                   monkeypatch):
+    """Every state tensor keeps its storage from the first segment to the
+    end of the run, through scripted events, the sequential cascade and
+    the host's resets: the property the card's CUDA graphs rely on."""
+    jobs, faults, kw = sim_scenario(name, port_top)
+    seen = []
+    segment = flowsim_torch._segment
+
+    def spy(st, *args):
+        seen.append([getattr(st, f).data_ptr() for f in flowsim_torch._FIELDS])
+        segment(st, *args)
+        seen.append([getattr(st, f).data_ptr() for f in flowsim_torch._FIELDS])
+
+    monkeypatch.setattr(flowsim_torch, "_segment", spy)
+    seq0 = PORT_REGISTRY.counter("sim.seq_cascades").value
+    simulate(jobs, faults, device="cpu", **kw)
+    assert len(seen) >= 2
+    assert all(ptrs == seen[0] for ptrs in seen)
+    assert len(set(seen[0])) == len(seen[0])  # no two share storage
+    if name == "relay_buffer_1":
+        assert PORT_REGISTRY.counter("sim.seq_cascades").value > seq0

@@ -27,6 +27,12 @@ from repro.transfer.flowsim import _maxmin_rates_arr
 from repro_torch.kernels.waterfill import ops, ref
 from repro_torch.obs.metrics import REGISTRY
 
+from test_torch_cases import (
+    SEGSUM_CASES,
+    WATERFILL_CHAIN_CASES,
+    segsum_case,
+    waterfill_chain_case,
+)
 from test_torch_cases import waterfill_case as _case
 
 
@@ -45,10 +51,7 @@ def _port_rates(case, precision, **kw):
     ).numpy()
 
 
-@pytest.mark.parametrize("with_edges", [False, True])
-@pytest.mark.parametrize("seed", range(4))
-def test_f64_bitwise_vs_numpy_oracle_and_jnp_masked(seed, with_edges):
-    case = _case(seed, with_edges=with_edges)
+def _f64_bitwise_vs_numpy_oracle_and_jnp_masked(case):
     caps, src, dst, eg, inn, eid, ed, active, nv, ne = case
     got = _port_rates(case, "f64")
     want = _maxmin_rates_arr(
@@ -66,6 +69,31 @@ def test_f64_bitwise_vs_numpy_oracle_and_jnp_masked(seed, with_edges):
         ))
     assert ref_jnp.dtype == np.float64
     assert np.array_equal(got, ref_jnp)
+
+
+@pytest.mark.parametrize("with_edges", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_f64_bitwise_vs_numpy_oracle_and_jnp_masked(seed, with_edges):
+    _f64_bitwise_vs_numpy_oracle_and_jnp_masked(
+        _case(seed, with_edges=with_edges))
+
+
+@pytest.mark.parametrize("name", WATERFILL_CHAIN_CASES)
+def test_chain_cases_f64_bitwise_vs_numpy_oracle_and_jnp_masked(name):
+    """One segment holding every lane, every lane tied at the threshold,
+    zero caps: the cases that stress the kernel's ordered chains."""
+    _f64_bitwise_vs_numpy_oracle_and_jnp_masked(waterfill_chain_case(name))
+
+
+@pytest.mark.parametrize("name", WATERFILL_CHAIN_CASES)
+def test_chain_cases_f32_rounds_match_pallas_kernel(name):
+    case = waterfill_chain_case(name)
+    caps, src, dst, eg, inn, eid, ed, active, nv, ne = case
+    got = _port_rates(case, "f32")
+    want = np.asarray(pallas_rates(caps, src, dst, eg, inn, eid, ed, active))
+    np.testing.assert_allclose(got[active], want[active], rtol=5e-3,
+                               atol=5e-3)
+    assert np.all(got[~active] == 0.0)
 
 
 @pytest.mark.parametrize("with_edges", [False, True])
@@ -115,6 +143,24 @@ def test_ordered_segment_sum_is_bincount(seed):
         torch.as_tensor(vals), torch.as_tensor(seg), nseg
     ).numpy()
     assert np.array_equal(got, np.bincount(seg, weights=vals, minlength=nseg))
+
+
+@pytest.mark.parametrize("name", SEGSUM_CASES)
+def test_ordered_segment_sum_cases_bitwise(name):
+    """Zeros between nonzeros, empty segments, a segment of 12,000 lanes,
+    a run of equal values and many short segments: bitwise equal to
+    numpy's bincount and to the reference's ``jax.ops.segment_sum`` in
+    float64."""
+    vals, seg, nseg = segsum_case(name)
+    got = ops.segment_sum_ordered(
+        torch.as_tensor(vals), torch.as_tensor(seg), nseg
+    ).numpy()
+    assert np.array_equal(got, np.bincount(seg, weights=vals, minlength=nseg))
+    with jax.enable_x64(True):
+        want = np.asarray(jax.ops.segment_sum(
+            jnp.asarray(vals), jnp.asarray(seg), num_segments=nseg))
+    assert want.dtype == np.float64
+    assert np.array_equal(got, want)
 
 
 def test_csr_lists_are_ascending_per_row():
