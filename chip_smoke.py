@@ -58,6 +58,15 @@ FIG6_VOLUME_GB = 640.0  # 10,240 chunks of 64 MB
 BIG_SRC, BIG_DST = "aws:us-west-2", "aws:eu-central-1"
 BIG_CHUNKS = 100_000
 CHUNK_MB = 64.0
+# [sim_fleet]: direct jobs of 8 VMs x 64 connections (512 lanes each, the
+# topology's per-VM and per-region limits), 8 chunks of 16 MB each, over
+# three routes; 48 of them hold 24,576 lanes, twice what one water-filling
+# block's shared memory takes, so every solve takes the kernel's
+# device-memory variant
+FLEET_JOBS, FLEET_CHUNKS, FLEET_CHUNK_MB = 48, 8, 16.0
+FLEET_ROUTES = (("aws:us-east-1", "aws:ap-southeast-2"),
+                ("aws:us-west-2", "aws:eu-central-1"),
+                ("gcp:us-central1", "gcp:europe-west1"))
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and the vector (non-tensor)
 # peaks the kernels' float operations run at
 HBM_BYTES_S = 3.35e12
@@ -72,7 +81,10 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu"
 FLASH_VECTOR_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu")
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:32"
-SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+# bf16 SSD at the tensor-core kernel's shapes runs on it; f32 keeps the
+# vector-unit kernel
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_wgmma.cu"
+SSD_VECTOR_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:30"
 # kernel-check shapes: Zamba2-7B's own (the model path), a GQA one
 # (qwen2-7b, 28:4 heads), a sliding-window one (mixtral's 4096 at 8192)
@@ -86,6 +98,7 @@ FLASH_CASES = {
 SSD_CASES = {
     "zamba2": dict(b=4, s=4096, h=112, p=64, n=64, q=256),
     "ragged": dict(b=2, s=1000, h=112, p=64, n=64, q=256),
+    "p32_n128": dict(b=1, s=2048, h=16, p=32, n=128, q=256),
 }
 # the tolerances of tests/test_kernels.py:45,84
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -316,8 +329,8 @@ def phase_build():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.waterfill import build
 
-    libs = [flash_ops.WGMMA_LIBRARY, build.LIBRARY, flash_ops.LIBRARY,
-            ssd_ops.LIBRARY, quant_ops.LIBRARY]
+    libs = [flash_ops.WGMMA_LIBRARY, ssd_ops.WGMMA_LIBRARY, build.LIBRARY,
+            flash_ops.LIBRARY, ssd_ops.LIBRARY, quant_ops.LIBRARY]
     t0 = time.perf_counter()
     nvcc.build_all(libs)
     seconds = time.perf_counter() - t0
@@ -330,9 +343,13 @@ def phase_build():
     hgmma = sass_count(flash_ops.WGMMA_LIBRARY.path(), "HGMMA")
     check(hgmma and all(n > 0 for n in hgmma.values()),
           f"the tensor-core flash kernels hold no HGMMA: {hgmma}")
+    ssd_hgmma = sass_count(ssd_ops.WGMMA_LIBRARY.path(), "HGMMA")
+    check(ssd_hgmma and all(n > 0 for n in ssd_hgmma.values()),
+          f"the tensor-core SSD kernels hold no HGMMA: {ssd_hgmma}")
     say("build", seconds=round(seconds, 3), card=card,
         nvcc_s={lib.source.name: round(lib.build_s, 3) for lib in libs},
-        ptxas=regs, flash_wgmma_hgmma_by_head_dim=hgmma)
+        ptxas=regs, flash_wgmma_hgmma_by_head_dim=hgmma,
+        ssd_wgmma_hgmma_by_state_atoms=ssd_hgmma)
     return card
 
 
@@ -411,6 +428,59 @@ def phase_waterfill(shapes, dev, errs):
         )
     say("waterfill", cases=n, f64_bitwise=True,
         max_abs_err={k: v for k, v in errs.items()}, f64_times=times)
+
+
+def wf_lanes(args: dict, precision: str) -> torch.Tensor:
+    """The device-memory variant's scratch for a solve of ``args``."""
+    from repro_torch.kernels.waterfill import ops
+
+    n = ops.scratch_bytes(args["caps"].shape[0], 8 if precision == "f64"
+                          else 4)
+    return torch.empty(n, dtype=torch.uint8, device=args["caps"].device)
+
+
+def phase_waterfill_global(shapes, dev, errs):
+    """The water-filling kernel's device-memory variant against the plain
+    version: f64 bit for bit, f32 within 1e-5, at the Fig. 6 sim's shape
+    and at the fleet's, twice what one block's shared memory takes, where
+    the shared-memory entry must raise."""
+    from repro_torch.kernels.waterfill import ops
+
+    fleet = wf_inputs(shapes["fleet"], dev, torch.float64)
+    nc, nv = fleet["caps"].shape[0], fleet["eg_cap"].shape[0]
+    ne = fleet["ed_cap"].shape[0]
+    check(ops.lanes_in_device_memory(nc, nv, ne),
+          "the fleet's lanes fit one block's shared memory")
+    try:
+        ops.waterfill_rates(**fleet)
+        check(False, "the shared-memory entry took the fleet's solve")
+    except ValueError:
+        pass
+    n = 0
+    for label, su in shapes.items():
+        for seed in range(2):
+            for precision, dtype in (("f64", torch.float64),
+                                     ("f32", torch.float32)):
+                args = wf_inputs(su, dev, dtype, seed=seed)
+                got = ops.waterfill_rates(**args, precision=precision,
+                                          lanes=wf_lanes(args, precision))
+                want = ops.waterfill_rates(**to_cpu(args),
+                                           precision=precision)
+                got = got.cpu()
+                name = f"waterfill_{precision}_global"
+                errs[name] = max(errs.get(name, 0.0),
+                                 float((got - want).abs().max()))
+                if precision == "f64":
+                    check(torch.equal(got, want), f"f64 device-memory "
+                          f"variant != plain ({label}, seed {seed})")
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-5)
+                n += 1
+    say("waterfill_global", cases=n, f64_bitwise=True, fleet_lanes=nc,
+        fleet_vms=nv, fleet_smem_bytes=ops.smem_bytes(nc, nv, ne, 8),
+        smem_limit=ops.SMEM_LIMIT, shared_entry_raised=True,
+        max_abs_err={k: v for k, v in errs.items() if "global" in k})
 
 
 def phase_plan(top):
@@ -584,6 +654,57 @@ def relay_jobs(top):
     return jobs, [VMFailure(t_s=0.8, job=0, region=kill, count=1)]
 
 
+def fleet_jobs(top):
+    """FLEET_JOBS staggered direct jobs of 8 VMs x 64 connections and
+    FLEET_CHUNKS chunks each, over FLEET_ROUTES."""
+    from repro_torch.core import direct_plan
+    from repro_torch.transfer import TransferJob
+
+    return [TransferJob(
+        direct_plan(top, *FLEET_ROUTES[i % 3],
+                    FLEET_CHUNKS * FLEET_CHUNK_MB / 1024, num_vms=8),
+        f"fleet{i}", chunk_mb=FLEET_CHUNK_MB, arrival_s=0.01 * i)
+        for i in range(FLEET_JOBS)]
+
+
+def phase_sim_fleet(top):
+    """The fleet on the card, every solve past one block's shared memory:
+    held field for field, Skytrace stream and all, against its CPU run;
+    every water-filling launch takes the device-memory variant."""
+    from repro_torch.kernels.waterfill import ops
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.transfer.events import materialize_jobs
+
+    jobs = fleet_jobs(top)
+    su = materialize_jobs(jobs)
+    nc = -(-su.conn_job.shape[0] // 8) * 8
+    nv, ne = su.vm_eg_cap.shape[0], len(su.edges_used)
+    check(ops.lanes_in_device_memory(nc, nv, ne),
+          "the fleet's solves fit one block's shared memory")
+    glob = REGISTRY.counter("kernels.waterfill_f64_global.launches")
+    shared = REGISTRY.counter("kernels.waterfill_f64.launches")
+    n0, s0, g0 = glob.value, shared.value, graph_counts()
+    card, wall, card_tr = traced_sim(jobs, [])
+    graphs = graph_delta(g0)
+    launches, shared_launches = glob.value - n0, shared.value - s0
+    cpu, cpu_wall, cpu_tr = traced_sim(jobs, [], device="cpu")
+    same_run(card, cpu, "fleet")
+    check(card_tr == cpu_tr, "fleet: card and CPU Skytrace streams differ")
+    check(all(j.status == "done" for j in card.jobs), "a fleet job failed")
+    iterations = graphs["iterations"]
+    check(launches == iterations and shared_launches == 0,
+          f"fleet: {launches} device-memory and {shared_launches} "
+          f"shared-memory solves over {iterations} iterations")
+    say("sim_fleet", jobs=len(jobs), lanes=nc, vms=nv, edges=ne,
+        smem_bytes_all_shared=ops.smem_bytes(nc, nv, ne, 8),
+        smem_limit=ops.SMEM_LIMIT, events=card.events,
+        sim_time_s=card.time_s, wall_s=round(wall, 4),
+        events_per_s=round(card.events / wall, 1),
+        cpu_wall_s=round(cpu_wall, 4), asdict_equal_cpu=True,
+        trace_equal_cpu=True, waterfill_global_launches=int(launches),
+        graphs=graphs)
+
+
 def big_jobs(top):
     from repro_torch.core import direct_plan
     from repro_torch.transfer import TransferJob
@@ -723,8 +844,8 @@ def phase_kernels(shapes, dev, launches, errs):
     for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         name = f"waterfill_{precision}"
         per_shape = {}
-        for label, s in shapes.items():
-            args = wf_inputs(s, dev, dtype)
+        for label in ("sim", "sim_1e5"):  # the shared-memory kernel's
+            args = wf_inputs(shapes[label], dev, dtype)
             segs = ops.build_segments(args["src"], args["dst"], args["eid"],
                                       args["eg_cap"].shape[0],
                                       args["ed_cap"].shape[0])
@@ -765,6 +886,42 @@ def phase_kernels(shapes, dev, launches, errs):
             call_ms=main["call_ms"],
         ))
         extra[name] = per_shape
+    # the device-memory variant (f64, the sim's solver) at the sim's shape
+    # and at the fleet's, where the fleet sim ran it
+    per_shape = {}
+    for label in ("sim", "fleet"):
+        args = wf_inputs(shapes[label], dev, torch.float64)
+        nv, ne = args["eg_cap"].shape[0], args["ed_cap"].shape[0]
+        segs = ops.build_segments(args["src"], args["dst"], args["eid"], nv,
+                                  ne)
+        lanes = wf_lanes(args, "f64")
+        kw = dict(args, n_vms=nv, n_edges=ne)
+
+        def kernel():
+            return ops.waterfill_rates(**args, segments=segs, lanes=lanes)
+        got = kernel().cpu()
+        want = ops.waterfill_rates(**to_cpu(args))
+        check(torch.equal(got, want), f"device-memory variant ({label})")
+        rounds, chain = live_rounds(args, "f64")
+        bound, by = wf_bound(args, rounds, "f64")
+        ms = kernel_ms(kernel, 50)
+        per_shape[label] = dict(
+            conns=args["caps"].shape[0], vms=nv, edges=ne, rounds=rounds,
+            chain=chain, ms=ms, ns_per_chained_add=ms * 1e6 / max(chain, 1),
+            call_ms=cuda_ms(kernel, 200),
+            plain_ms=cuda_ms(lambda: ref.masked_maxmin_rates(**kw), 3),
+            bound_ms=bound, bound_by=by,
+        )
+    main = per_shape["fleet"]
+    out.append(dict(
+        name="waterfill_f64_global", route="cuda", source=WF_SOURCE,
+        replaces=WF_TPU, launches=launches["waterfill_f64_global"],
+        max_abs_err=errs["waterfill_f64_global"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None, call_ms=main["call_ms"],
+        sim_shape_ms=per_shape["sim"]["ms"],
+    ))
+    extra["waterfill_f64_global"] = per_shape
     # ordered segment sum at the sim's per-(job, edge) map
     ne = len(su.edges_used)
     je = torch.as_tensor(su.conn_job * ne + su.conn_edge, device=dev)
@@ -957,28 +1114,48 @@ def phase_flash_times() -> dict:
 
 
 def phase_ssd(errs):
-    """The SSD kernel against its plain version on the card, f32 and bf16,
-    at every SSD_CASES shape (y and the final state)."""
+    """The SSD kernels against their plain version on the card, f32 and
+    bf16, at every SSD_CASES shape (y and the final state): ``ssd_scan`` as
+    the model calls it (bf16 on the tensor-core kernel, which must take
+    every bf16 case, f32 on the vector-unit one), and the vector-unit
+    kernel on the bf16 inputs too."""
     from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.obs.metrics import REGISTRY
 
+    wgmma = REGISTRY.counter("kernels.ssd_scan.wgmma_launches")
     out, absmax = {}, {}
     for label, c in SSD_CASES.items():
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_inputs(c, dtype, seed=2)
-            y, st = ops.ssd_scan(*args, chunk=c["q"])
             y0, st0 = ops.ssd_scan_plain(*args, chunk=c["q"])
-            check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
-                  f"ssd {label}: not finite")
-            tol = SSD_TOL[dtype]
-            torch.testing.assert_close(y.float(), y0.float(), atol=tol,
-                                       rtol=tol)
-            torch.testing.assert_close(st, st0, atol=tol, rtol=tol)
-            err = max(float((y.float() - y0.float()).abs().max()),
-                      float((st - st0).abs().max()))
-            errs["ssd_scan"] = max(errs.get("ssd_scan", 0.0), err)
-            out[f"{label}_{str(dtype)[6:]}"] = err
+            want = ops.kernel_for(dtype, c["q"], c["p"], c["n"])
+            check(want == ("wgmma" if dtype == torch.bfloat16 else "vector"),
+                  f"ssd {label} {dtype}: routed to the {want} kernel")
+            runs = {want: ops.ssd_scan}
+            runs.setdefault("vector", lambda *a, **kw: ops.ssd_scan_on(
+                "vector", *a, **kw))
+            for kernel, fn in runs.items():
+                w0 = wgmma.value
+                y, st = fn(*args, chunk=c["q"])
+                check(wgmma.value - w0 == (kernel == "wgmma"),
+                      f"ssd {label} {dtype}: the {kernel} call moved the "
+                      f"tensor-core count by {wgmma.value - w0}")
+                check(bool(torch.isfinite(y).all()
+                           and torch.isfinite(st).all()),
+                      f"ssd {label} {kernel}: not finite")
+                tol = SSD_TOL[dtype]
+                torch.testing.assert_close(y.float(), y0.float(), atol=tol,
+                                           rtol=tol)
+                torch.testing.assert_close(st, st0, atol=tol, rtol=tol)
+                err = max(float((y.float() - y0.float()).abs().max()),
+                          float((st - st0).abs().max()))
+                name = ("ssd_scan" if kernel == "wgmma"
+                        or dtype == torch.float32 else "ssd_vector_bf16")
+                errs[name] = max(errs.get(name, 0.0), err)
+                out[f"{label}_{str(dtype)[6:]}_{kernel}"] = err
+                del y, st
             absmax[label] = float(y0.float().abs().max())
-            del args, y, st, y0, st0
+            del args, y0, st0
     torch.cuda.empty_cache()
     say("ssd", cases=len(out), max_abs_err=out, plain_y_absmax=absmax,
         tol={str(k)[6:]: v for k, v in SSD_TOL.items()})
@@ -1036,7 +1213,8 @@ def phase_forward(params, batch, counters: dict):
     type), then in f32 with the kernels (use_pallas True) and with the
     plain path (False: einsum attention, ``ssd_chunked``), same parameters
     and tokens. The counters are zeroed just before the bf16 run and read
-    just after it; returns its (flash, tensor-core flash, ssd) launches."""
+    just after it; returns its (flash, tensor-core flash, ssd, tensor-core
+    ssd) launches."""
     from repro_torch import models
     from repro_torch.launch.serve import RULES
     from repro_torch.models.model import logits_of
@@ -1059,15 +1237,16 @@ def phase_forward(params, batch, counters: dict):
             fl = int(REGISTRY.counter(counters["flash_attention"]).value)
             fw = int(REGISTRY.counter(counters["flash_wgmma"]).value)
             ss = int(REGISTRY.counter(counters["ssd_scan"]).value)
+            sw = int(REGISTRY.counter(counters["ssd_wgmma"]).value)
         check(h.shape == (MODEL_B, MODEL_S, c.d_model)
               and bool(torch.isfinite(h).all()), f"forward {key}: bad hidden")
         res[key] = dict(logits=logits_of(c, params, h[:, -1]), wall_s=wall,
                         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                         hidden=h if key != "bf16" else None)
         del h
-    check(fl == 27 and fw == 27 and ss == 81,
+    check(fl == 27 and fw == 27 and ss == 81 and sw == 81,
           f"forward launched flash {fl} ({fw} tensor-core) and SSD {ss} "
-          "times, not 27 (27) and 81")
+          f"({sw} tensor-core) times, not 27 (27) and 81 (81)")
     k, p = res["f32"], res["f32_plain"]
     rel_h = float((k["hidden"] - p["hidden"]).abs().max()
                   / p["hidden"].abs().max())
@@ -1090,10 +1269,11 @@ def phase_forward(params, batch, counters: dict):
             (b - p["logits"]).abs().max()),
         argmax_agree_bf16_f32_plain=float(
             (b.argmax(-1) == p["logits"].argmax(-1)).float().mean()),
-        flash_launches=fl, flash_wgmma_launches=fw, ssd_launches=ss)
+        flash_launches=fl, flash_wgmma_launches=fw, ssd_launches=ss,
+        ssd_wgmma_launches=sw)
     del res
     torch.cuda.empty_cache()
-    return fl, fw, ss
+    return fl, fw, ss, sw
 
 
 def _busy(dev, lo=float("-inf"), hi=float("inf")):
@@ -1128,12 +1308,12 @@ def phase_serve_profile(params, batch, serve_numbers: dict):
     (state, logits), dev = profiled(lambda: prefill_step(params, batch))
     p_busy, p_top = _busy(dev)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    tok, state, _ = serve_step(params, state, tok)  # outside the window
+    tok, state = serve_step(params, state, tok)  # outside the window
 
     def steps():
         t = tok
         for _ in range(4):
-            t, _, _ = serve_step(params, state, t)
+            t, _ = serve_step(params, state, t)
 
     _, dev = profiled(steps)
     d_busy, d_top = _busy(dev)
@@ -1190,7 +1370,8 @@ def model_kernels(launches: dict, errs: dict, flash_times: dict):
     """The kernels-line entries of flash attention and the SSD scan at
     Zamba2-7B's shapes in bf16 (the model's activation type). Flash
     attention's kernel, vector-unit and library times are
-    ``[flash_times]``'s, taken in turns on this card."""
+    ``[flash_times]``'s; the SSD scan's tensor-core and vector-unit kernels
+    are timed here in turns on the same inputs."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -1211,12 +1392,19 @@ def model_kernels(launches: dict, errs: dict, flash_times: dict):
     c = SSD_CASES["zamba2"]
     args = ssd_inputs(c, bf16, seed=4)
     bound, by = ssd_bound(c, bf16)
+    ms = timed_turns({
+        "wgmma": lambda: ssd_ops.ssd_scan(*args),
+        "vector": lambda: ssd_ops.ssd_scan_on("vector", *args),
+    }, {"wgmma": 20, "vector": 2})
     out.append(dict(
         name="ssd_scan", route="cuda", source=SSD_SOURCE, replaces=SSD_TPU,
         launches=launches["ssd_scan"], max_abs_err=errs["ssd_scan"],
-        ms=kernel_ms(lambda: ssd_ops.ssd_scan(*args), 5),
+        ms=ms["wgmma"],
         plain_ms=cuda_ms(lambda: ssd_ops.ssd_scan_plain(*args), 2),
         bound_ms=bound, bound_by=by, library_ms=None,
+        wgmma_launches=launches["ssd_wgmma"],
+        vector_source=SSD_VECTOR_SOURCE, vector_ms=ms["vector"],
+        bound_share=bound / ms["wgmma"],
     ))
     del args
     torch.cuda.empty_cache()
@@ -1232,18 +1420,21 @@ def model_path(errs: dict) -> list:
     phase_ssd(errs)
     counters = {"flash_attention": "kernels.flash_attention.launches",
                 "flash_wgmma": "kernels.flash_attention.wgmma_launches",
-                "ssd_scan": "kernels.ssd_scan.launches"}
+                "ssd_scan": "kernels.ssd_scan.launches",
+                "ssd_wgmma": "kernels.ssd_scan.wgmma_launches"}
     # ---- the model path: every launch count starts at 0 before each run
     for n in counters.values():
         REGISTRY.counter(n).reset()
     serve_flash, serve_wgmma, serve_numbers = phase_serve()
     params, batch = zamba_params()
-    fwd_flash, fwd_wgmma, fwd_ssd = phase_forward(params, batch, counters)
+    fwd_flash, fwd_wgmma, fwd_ssd, fwd_ssd_wgmma = phase_forward(
+        params, batch, counters)
     phase_serve_profile(params, batch, serve_numbers)
     del params, batch
     torch.cuda.empty_cache()
     launches = {"flash_attention": serve_flash + fwd_flash,
-                "flash_wgmma": serve_wgmma + fwd_wgmma, "ssd_scan": fwd_ssd}
+                "flash_wgmma": serve_wgmma + fwd_wgmma, "ssd_scan": fwd_ssd,
+                "ssd_wgmma": fwd_ssd_wgmma}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the model path")
     phase_model_cpu()
@@ -1775,15 +1966,21 @@ def main(argv=None) -> int:
         volume_gb=FIG6_VOLUME_GB, n_samples=8,
     ))
     errs: dict = {}
+    fleet_su = materialize_jobs(fleet_jobs(top))
     phase_waterfill({
         "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
         "sim_1e5": materialize_jobs(big_jobs(top)),
+    }, dev, errs)
+    phase_waterfill_global({
+        "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
+        "fleet": fleet_su,
     }, dev, errs)
 
     # ---- the main path: every launch count starts at 0 here
     counters = {
         "waterfill_f64": "kernels.waterfill_f64.launches",
         "waterfill_f32": "kernels.waterfill_f32.launches",
+        "waterfill_f64_global": "kernels.waterfill_f64_global.launches",
         "segsum_ordered_f64": "kernels.segsum_ordered.launches",
     }
     for c in counters.values():
@@ -1793,13 +1990,14 @@ def main(argv=None) -> int:
     phase_sim(jobs, faults)
     big = big_jobs(top)
     phase_sim_1e5(big)
+    phase_sim_fleet(top)
     launches = {k: int(REGISTRY.counter(c).value) for k, c in counters.items()}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")
 
     phase_profile(big)
     sim_shapes = {"sim": materialize_jobs(jobs),
-                  "sim_1e5": materialize_jobs(big)}
+                  "sim_1e5": materialize_jobs(big), "fleet": fleet_su}
     kernels, shapes = phase_kernels(sim_shapes, dev, launches, errs)
     kernels += model_path(errs)
     kernels += train_path(errs)

@@ -16,3 +16,9 @@ def refuse_grad(name: str, *tensors) -> None:
             "cfg.use_pallas=False, as the reference does, or call it under "
             "torch.no_grad()"
         )
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as TMA reads it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

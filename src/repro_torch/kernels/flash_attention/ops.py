@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.obs.metrics import REGISTRY
 
-from .. import refuse_grad
+from .. import aligned16, refuse_grad
 from ..nvcc import BASE_FLAGS, Library
 from . import ref
 
@@ -73,12 +73,6 @@ LIBRARY = Library(_CSRC / "flash_attention.cu", BASE_FLAGS, _declare)
 WGMMA_LIBRARY = Library(_CSRC / "flash_wgmma.cu", BASE_FLAGS, _declare_wgmma)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned, as TMA reads it."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _kernel(q, k, v, *, causal: bool, window: int | None, scale: float,
             kernel: str | None = None):
     """A CUDA kernel on [B,S,H,D] / [B,S,Kv,D] card tensors: ``kernel``
@@ -97,7 +91,7 @@ def _kernel(q, k, v, *, causal: bool, window: int | None, scale: float,
     kernel = kernel_for(q.dtype, d) if kernel is None else kernel
     if kernel == "wgmma" and kernel_for(q.dtype, d) != "wgmma":
         raise ValueError(f"no tensor-core flash kernel for {q.dtype}, D {d}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     win = -1 if window is None else int(window)
     stream = torch.cuda.current_stream(q.device).cuda_stream

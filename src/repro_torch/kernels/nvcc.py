@@ -1,12 +1,13 @@
 """Build a kernel source with ``nvcc`` and load it with ctypes.
 
 Every CUDA library of the port is one ``csrc/*.cu`` file with a plain C
-interface, which may include headers beside it. A ``Library`` compiles
+interface, which may include headers beside it or in the ``csrc/`` of
+another kernel package (``deps``). A ``Library`` compiles
 its source for ``sm_90a`` into a shared library at first use, into
 ``_build/`` beside its package (listed in ``.gitignore``), and caches the
 handle. The library's name carries a hash
-of the flags and of every file in the source's ``csrc/`` directory, so an
-edited source or header builds anew.
+of the flags and of every file in the source's ``csrc/`` directory and in
+its ``deps``, so an edited source or header builds anew.
 ``build_all`` starts one ``nvcc`` per library at once and waits for all.
 Nothing here runs at import time: the CPU tests import the kernels'
 modules on machines without ``nvcc``.
@@ -51,10 +52,12 @@ class Library:
     ``ptxas`` its ``-Xptxas -v`` report."""
 
     def __init__(self, source: Path, flags: tuple[str, ...],
-                 declare: Callable[[ctypes.CDLL], None]):
+                 declare: Callable[[ctypes.CDLL], None],
+                 deps: tuple[Path, ...] = ()):
         self.source = Path(source)
         self.flags = flags
         self.declare = declare
+        self.deps = tuple(Path(d) for d in deps)  # other csrc/ it includes
         self.build_dir = self.source.parent.parent / "_build"
         self.lib: ctypes.CDLL | None = None
         self.build_s = 0.0
@@ -62,13 +65,14 @@ class Library:
 
     def path(self) -> Path:
         """The library's file, named by a hash of the flags and of every
-        file in the source's directory (by name and content), so that an
-        edited header builds anew too."""
+        file in the source's directory and its ``deps`` (by name and
+        content), so that an edited header builds anew too."""
         h = hashlib.sha256(" ".join(self.flags).encode())
-        for f in sorted(self.source.parent.rglob("*")):
-            if f.is_file() and "__pycache__" not in f.parts:
-                h.update(f.relative_to(self.source.parent).as_posix().encode())
-                h.update(f.read_bytes())
+        for d in (self.source.parent, *self.deps):
+            for f in sorted(d.rglob("*")):
+                if f.is_file() and "__pycache__" not in f.parts:
+                    h.update(f.relative_to(d.parent).as_posix().encode())
+                    h.update(f.read_bytes())
         tag = h.hexdigest()[:16]
         return self.build_dir / f"lib{self.source.stem}_{tag}.so"
 

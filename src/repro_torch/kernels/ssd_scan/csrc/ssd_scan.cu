@@ -1,5 +1,7 @@
 // Mamba2 SSD chunked scan (state-space duality form) for Hopper (sm_90a),
-// f32 math on f32 or bf16 inputs.
+// f32 math on f32 or bf16 inputs: the vector-unit kernel. bf16 at the
+// shapes ssd_wgmma.cu takes runs there, on the tensor cores
+// (ops.py::kernel_for); this kernel takes f32 and the other shapes.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/ssd_scan/ssd_scan.py:30 (_ssd_kernel, launched by
@@ -16,9 +18,9 @@
 // What bounds it on the H100: at Zamba2's shape (B 4, S 4096, 112 heads,
 // P 64, N 64, Q 256) it moves ~0.49 GB (x and y dominate) and does
 // ~1e11 FLOP, so in bf16 on tensor cores bytes and operations would be
-// near balance (~0.15 ms each); this first kernel does the arithmetic on
-// the f32 vector units, which makes it operation bound, and slow against
-// that bound. Tensor-core tiles come in a later change.
+// near balance (~0.15 ms each); this kernel does the arithmetic on the
+// f32 vector units, which makes it operation bound, and slow against that
+// bound. f32's 1e-3 tolerance rules out bf16 products.
 //
 // Design. On the TPU the chunk index is the sequential grid axis and the
 // state lives in VMEM across it. Hopper's blocks run in no order, so one

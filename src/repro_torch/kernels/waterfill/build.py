@@ -25,12 +25,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = _WATERFILL_ARGS
         fn.restype = _I
+        fn = getattr(lib, f"{name}_global")  # + the per-lane scratch
+        fn.argtypes = [_P] + _WATERFILL_ARGS
+        fn.restype = _I
     lib.segsum_ordered_f64.argtypes = [_P, _P, _P, _P, _I, _P]
     lib.segsum_ordered_f64.restype = _I
     lib.waterfill_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.waterfill_smem_bytes.restype = ctypes.c_size_t
     lib.waterfill_smem_limit.argtypes = [_I]
     lib.waterfill_smem_limit.restype = ctypes.c_size_t
+    lib.waterfill_scratch_bytes.argtypes = [_I, _I]
+    lib.waterfill_scratch_bytes.restype = ctypes.c_size_t
 
 
 LIBRARY = Library(SOURCE, NVCC_FLAGS, _declare)

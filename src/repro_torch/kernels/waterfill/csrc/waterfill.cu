@@ -52,6 +52,19 @@
 //     lane reads its edge's new share, which the edge's fold produces last;
 //   * thread-block clusters are not needed: a solve of a few thousand lanes
 //     fits one block's shared memory, and the chain is serial anyway.
+// A second instantiation keeps the three per-lane arrays (cap, rate and the
+// state byte) in a scratch buffer in device memory, which the caller
+// allocates (waterfill_scratch_bytes), and everything else in shared
+// memory as above: the budgets, shares and counts per segment and each
+// warp's run. It takes solves past one block's shared memory (about
+// 12,100 lanes at f64), of any lane count, up to ~10,300 segments (VM
+// egress, VM ingress and edges) at f64. One template parameter
+// picks where the three pointers point, so the chain order, the rounds and
+// the build are the same code, and its f64 results are bitwise equal to
+// the plain version too. The lane passes then go through L1 and L2; the
+// sim takes this variant only for solves that do not fit
+// (kernels/waterfill/ops.py, lanes_in_device_memory).
+//
 // The sim passes a device flag `changed`; when it is 0 the kernel copies
 // the cached rates, so the caller never reads the flag on the host. The TPU
 // layout (one-hot scatter matmuls, 8-row replicated tiles) is not carried
@@ -166,7 +179,16 @@ size_t smem_bytes(int nc, int nv, int ne, int elem) {
 // Dynamic shared memory one block may take (the kernel has no static).
 size_t smem_limit(int) { return kMaxSmem; }
 
-template <typename T>
+// The device-memory variant's per-lane scratch, in bytes: cap and rate per
+// lane, then each lane's state byte. Its shared memory is smem_bytes with
+// no lanes.
+size_t scratch_bytes(int nc, int elem) {
+  return (2 * (size_t)nc * (size_t)elem + (size_t)nc + 15) & ~(size_t)15;
+}
+
+// kLanesShared: cap, rate and the state byte per lane in shared memory;
+// otherwise in `lanes`, a device-memory buffer of scratch_bytes(nc)
+template <typename T, bool kLanesShared>
 __global__ void __launch_bounds__(kThreads)
 waterfill_kernel(const T* __restrict__ caps, const int* __restrict__ src,
                  const int* __restrict__ dst, const int* __restrict__ eid,
@@ -174,8 +196,8 @@ waterfill_kernel(const T* __restrict__ caps, const int* __restrict__ src,
                  const T* __restrict__ ed0, const uint8_t* __restrict__ active,
                  const uint8_t* __restrict__ changed,
                  const T* __restrict__ prev, Csr cs, Csr cd, Csr ce,
-                 T* __restrict__ out, int nc, int nv, int ne, int ne_bound,
-                 int n_iters) {
+                 unsigned char* lanes, T* __restrict__ out, int nc, int nv,
+                 int ne, int ne_bound, int n_iters) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -186,18 +208,20 @@ waterfill_kernel(const T* __restrict__ caps, const int* __restrict__ src,
 
   const int nseg = 2 * nv + ne;
   T* red_lo = reinterpret_cast<T*>(smem);  // [kWarps]
-  T* cap = red_lo + kWarps;
+  T* cap = kLanesShared ? red_lo + kWarps : reinterpret_cast<T*>(lanes);
   // a fixed lane's rate; an unfixed lane's share of the round
   T* rate = cap + nc;
-  T* run = rate + nc + warp * (kRun + 8);  // this warp's [kRun + 8]
-  T* bud = rate + nc + kWarps * (kRun + 8);  // [nseg] egress, ingress, edge
-  T* seg_share = bud + nseg;                 // [nseg]
+  T* runs = kLanesShared ? rate + nc : red_lo + kWarps;  // shared, per warp
+  T* run = runs + warp * (kRun + 8);  // this warp's [kRun + 8]
+  T* bud = runs + kWarps * (kRun + 8);  // [nseg] egress, ingress, edge
+  T* seg_share = bud + nseg;            // [nseg]
   int* red_n = reinterpret_cast<int*>(seg_share + nseg);  // [kWarps]
   int* next_seg = red_n + kWarps;  // the segment counter of a pass
   int* cnt = next_seg + 1;         // [nseg] unfixed lanes
   // st: 1 = unfixed active lane, 2 = fixed this round, 0 = fixed earlier or
   // inactive
-  uint8_t* st = reinterpret_cast<uint8_t*>(cnt + nseg);
+  uint8_t* st = kLanesShared ? reinterpret_cast<uint8_t*>(cnt + nseg)
+                             : reinterpret_cast<uint8_t*>(rate + nc);
   const unsigned lt = (1u << lane) - 1u;
 
   // ---- stage the solve's state in shared memory once
@@ -412,33 +436,39 @@ segsum_ordered_kernel(const double* __restrict__ vals,
   if (threadIdx.x == 0) out[s] = acc;
 }
 
-template <typename T>
+// lanes == nullptr: the shared-memory kernel; otherwise the device-memory
+// variant on that scratch
+template <typename T, bool kLanesShared>
 int launch_waterfill(const void* caps, const void* src, const void* dst,
                      const void* eid, const void* eg, const void* in,
                      const void* ed, const void* active, const void* changed,
                      const void* prev, const void* src_off,
                      const void* src_idx, const void* dst_off,
                      const void* dst_idx, const void* ed_off,
-                     const void* ed_idx, void* out, int nc, int nv, int ne,
-                     int ne_bound, int n_iters, void* stream) {
+                     const void* ed_idx, void* lanes, void* out, int nc,
+                     int nv, int ne, int ne_bound, int n_iters,
+                     void* stream) {
   static size_t configured = 0;
-  const size_t smem = smem_bytes(nc, nv, ne, (int)sizeof(T));
+  const size_t smem =
+      smem_bytes(kLanesShared ? nc : 0, nv, ne, (int)sizeof(T));
   if (smem > smem_limit((int)sizeof(T))) return (int)cudaErrorInvalidValue;
+  if (!kLanesShared && lanes == nullptr) return (int)cudaErrorInvalidValue;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        waterfill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        waterfill_kernel<T, kLanesShared>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = smem;
   }
   Csr cs{(const int*)src_off, (const int*)src_idx};
   Csr cd{(const int*)dst_off, (const int*)dst_idx};
   Csr ce{(const int*)ed_off, (const int*)ed_idx};
-  waterfill_kernel<T><<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)caps, (const int*)src, (const int*)dst, (const int*)eid,
-      (const T*)eg, (const T*)in, (const T*)ed, (const uint8_t*)active,
-      (const uint8_t*)changed, (const T*)prev, cs, cd, ce, (T*)out, nc, nv,
-      ne, ne_bound, n_iters);
+  waterfill_kernel<T, kLanesShared>
+      <<<1, kThreads, smem, (cudaStream_t)stream>>>(
+          (const T*)caps, (const int*)src, (const int*)dst, (const int*)eid,
+          (const T*)eg, (const T*)in, (const T*)ed, (const uint8_t*)active,
+          (const uint8_t*)changed, (const T*)prev, cs, cd, ce,
+          (unsigned char*)lanes, (T*)out, nc, nv, ne, ne_bound, n_iters);
   return (int)cudaGetLastError();
 }
 
@@ -452,31 +482,51 @@ size_t waterfill_smem_bytes(int nc, int nv, int ne, int elem) {
 
 size_t waterfill_smem_limit(int elem) { return smem_limit(elem); }
 
-int waterfill_f64(const void* caps, const void* src, const void* dst,
-                  const void* eid, const void* eg, const void* in,
-                  const void* ed, const void* active, const void* changed,
-                  const void* prev, const void* src_off, const void* src_idx,
-                  const void* dst_off, const void* dst_idx,
-                  const void* ed_off, const void* ed_idx, void* out, int nc,
-                  int nv, int ne, int ne_bound, int n_iters, void* stream) {
-  return launch_waterfill<double>(caps, src, dst, eid, eg, in, ed, active,
-                                  changed, prev, src_off, src_idx, dst_off,
-                                  dst_idx, ed_off, ed_idx, out, nc, nv, ne,
-                                  ne_bound, n_iters, stream);
+size_t waterfill_scratch_bytes(int nc, int elem) {
+  return scratch_bytes(nc, elem);
 }
 
-int waterfill_f32(const void* caps, const void* src, const void* dst,
-                  const void* eid, const void* eg, const void* in,
-                  const void* ed, const void* active, const void* changed,
-                  const void* prev, const void* src_off, const void* src_idx,
-                  const void* dst_off, const void* dst_idx,
-                  const void* ed_off, const void* ed_idx, void* out, int nc,
-                  int nv, int ne, int ne_bound, int n_iters, void* stream) {
-  return launch_waterfill<float>(caps, src, dst, eid, eg, in, ed, active,
-                                 changed, prev, src_off, src_idx, dst_off,
-                                 dst_idx, ed_off, ed_idx, out, nc, nv, ne,
-                                 ne_bound, n_iters, stream);
+#define WATERFILL_ARGS                                                      \
+  const void *caps, const void *src, const void *dst, const void *eid,     \
+      const void *eg, const void *in, const void *ed, const void *active,  \
+      const void *changed, const void *prev, const void *src_off,          \
+      const void *src_idx, const void *dst_off, const void *dst_idx,       \
+      const void *ed_off, const void *ed_idx
+#define WATERFILL_PASS                                                      \
+  caps, src, dst, eid, eg, in, ed, active, changed, prev, src_off, src_idx, \
+      dst_off, dst_idx, ed_off, ed_idx
+
+// the shared-memory kernels: every lane in one block's shared memory
+int waterfill_f64(WATERFILL_ARGS, void* out, int nc, int nv, int ne,
+                  int ne_bound, int n_iters, void* stream) {
+  return launch_waterfill<double, true>(WATERFILL_PASS, nullptr, out, nc, nv,
+                                        ne, ne_bound, n_iters, stream);
 }
+
+int waterfill_f32(WATERFILL_ARGS, void* out, int nc, int nv, int ne,
+                  int ne_bound, int n_iters, void* stream) {
+  return launch_waterfill<float, true>(WATERFILL_PASS, nullptr, out, nc, nv,
+                                       ne, ne_bound, n_iters, stream);
+}
+
+// the device-memory variants: per-lane arrays in `lanes`
+// (waterfill_scratch_bytes(nc, elem) bytes, 16-byte aligned)
+int waterfill_f64_global(WATERFILL_ARGS, void* lanes, void* out, int nc,
+                         int nv, int ne, int ne_bound, int n_iters,
+                         void* stream) {
+  return launch_waterfill<double, false>(WATERFILL_PASS, lanes, out, nc, nv,
+                                         ne, ne_bound, n_iters, stream);
+}
+
+int waterfill_f32_global(WATERFILL_ARGS, void* lanes, void* out, int nc,
+                         int nv, int ne, int ne_bound, int n_iters,
+                         void* stream) {
+  return launch_waterfill<float, false>(WATERFILL_PASS, lanes, out, nc, nv,
+                                        ne, ne_bound, n_iters, stream);
+}
+
+#undef WATERFILL_ARGS
+#undef WATERFILL_PASS
 
 int segsum_ordered_f64(const void* vals, const void* off, const void* idx,
                        void* out, int nseg, void* stream) {

@@ -6,11 +6,16 @@ version (``ref.py``) for tensors on the CPU and launch the CUDA kernel
 and no fallback. Each launch adds one to its kernel's counter in the
 port's metrics registry (``kernels.waterfill_f64.launches``,
 ``kernels.waterfill_f32.launches``, ``kernels.segsum_ordered.launches``);
-CPU calls do not count. A call under CUDA stream capture records the
-kernel into a graph and launches nothing: it adds one to the kernel's
-``.recorded`` counter instead, and whoever replays the graph adds the
-launches it recorded to ``.launches`` at each replay (``GRAPH_COUNTERS``
-pairs the two).
+CPU calls do not count. A solve whose lanes do not fit one block's shared
+memory takes the kernel's device-memory variant when the caller hands it
+a scratch buffer (``lanes``, of ``scratch_bytes``); the sim decides that
+once per scenario by ``lanes_in_device_memory``, a mirror of the
+library's own size rule, and the variant counts on
+``kernels.waterfill_{f64,f32}_global.launches``. A call under CUDA stream
+capture records the kernel into a graph and launches nothing: it adds one
+to the kernel's ``.recorded`` counter instead, and whoever replays the
+graph adds the launches it recorded to ``.launches`` at each replay
+(``GRAPH_COUNTERS`` pairs the two).
 
 The kernels walk CSR lists (row -> ascending connection lanes) instead of
 one-hot matrices. The maps they encode are constant for a scenario, so a
@@ -32,11 +37,16 @@ _DTYPES = {"f64": torch.float64, "f32": torch.float32}
 _launches = {
     p: REGISTRY.counter(f"kernels.waterfill_{p}.launches") for p in _DTYPES
 }
+_global_launches = {
+    p: REGISTRY.counter(f"kernels.waterfill_{p}_global.launches")
+    for p in _DTYPES
+}
 _segsum_launches = REGISTRY.counter("kernels.segsum_ordered.launches")
 # (recorded under capture, launched) counter pairs of every kernel here
 GRAPH_COUNTERS = tuple(
     (REGISTRY.counter(c.name.replace(".launches", ".recorded")), c)
-    for c in (*_launches.values(), _segsum_launches)
+    for c in (*_launches.values(), *_global_launches.values(),
+              _segsum_launches)
 )
 _recorded = {c.name: r for r, c in GRAPH_COUNTERS}
 
@@ -48,6 +58,35 @@ def _count(launches: Counter) -> None:
         _recorded[launches.name].inc()
     else:
         launches.inc()
+
+
+# csrc/waterfill.cu's launch shape and shared-memory layout, mirrored so
+# that a caller picks the kernel variant without loading the library (a
+# card test holds the mirror equal to the library's own functions)
+SMEM_LIMIT = 232448  # dynamic shared memory one block may take (227 KB)
+_WARPS, _RUN = 12, 256
+_ELEM = {"f64": 8, "f32": 4}
+
+
+def smem_bytes(nc: int, nv: int, ne: int, elem: int) -> int:
+    """Shared memory of one solve with every lane in it (``nc`` 0: the
+    device-memory variant's), as ``waterfill_smem_bytes`` computes it."""
+    nseg = 2 * nv + ne
+    reals = _WARPS * (1 + _RUN + 8) + 2 * nc + 2 * nseg
+    ints = _WARPS + 1 + nseg
+    return (reals * elem + ints * 4 + nc + 15) & ~15
+
+
+def scratch_bytes(nc: int, elem: int) -> int:
+    """The device-memory variant's per-lane scratch (cap, rate, state)."""
+    return (2 * nc * elem + nc + 15) & ~15
+
+
+def lanes_in_device_memory(nc: int, nv: int, ne: int,
+                           precision: str = "f64") -> bool:
+    """Whether a solve of this size needs the device-memory variant: its
+    lanes do not fit one block's shared memory."""
+    return smem_bytes(nc, nv, ne, _ELEM[precision]) > SMEM_LIMIT
 
 
 class Segments(NamedTuple):
@@ -101,8 +140,8 @@ def _check(t: torch.Tensor, name: str, dtype, n: int, device) -> None:
 def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
                     active=None, *, precision: str = "f64",
                     n_edges_bound: int | None = None, changed=None,
-                    prev=None, segments: Segments | None = None
-                    ) -> torch.Tensor:
+                    prev=None, segments: Segments | None = None,
+                    lanes: torch.Tensor | None = None) -> torch.Tensor:
     """Max-min fair per-connection rates over the ``active`` lanes.
 
     caps/src/dst/eid/active are per-connection lanes [NC]; eg_cap/in_cap
@@ -119,6 +158,12 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     ``changed`` (a bool scalar tensor on the caps' device) with ``prev``
     (rates of the caps' dtype) returns ``prev`` when the flag is False;
     on the card the kernel reads the flag itself, so nothing syncs.
+
+    ``lanes`` (uint8, at least ``scratch_bytes(nc, elem)``, on the caps'
+    device) runs the kernel's device-memory variant, which keeps each
+    lane's cap, rate and state there and so takes any lane count; without
+    it a solve past one block's shared memory raises. The CPU's plain
+    version ignores it.
     """
     if precision not in _DTYPES:
         raise ValueError(f"unknown precision {precision!r} (f64 or f32)")
@@ -169,11 +214,17 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
         _check(changed.reshape(1), "changed", torch.bool, 1, dev)
         _check(prev, "prev", dtype, nc, dev)
     elem = 8 if dtype == torch.float64 else 4
-    if (lib.waterfill_smem_bytes(nc, nv, ne, elem)
-            > lib.waterfill_smem_limit(elem)):
+    if lanes is not None:
+        _check(lanes, "lanes", torch.uint8, lanes.shape[0], dev)
+        if lanes.shape[0] < lib.waterfill_scratch_bytes(nc, elem):
+            raise ValueError(f"lanes holds {lanes.shape[0]} bytes, fewer "
+                             f"than {nc} connections need")
+    if (lib.waterfill_smem_bytes(0 if lanes is not None else nc, nv, ne,
+                                 elem) > lib.waterfill_smem_limit(elem)):
+        what = "" if lanes is not None else f"{nc} connections, "
         raise ValueError(
-            f"{nc} connections, {nv} VMs and {ne} edges do not fit one "
-            "block's shared memory"
+            f"{what}{nv} VMs and {ne} edges do not fit one block's shared "
+            "memory"
         )
     if segments is None:
         segments = build_segments(src, dst, eid if ne else None, nv, ne)
@@ -184,17 +235,21 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = lib.waterfill_f64 if precision == "f64" else lib.waterfill_f32
-    rc = fn(
+    name = f"waterfill_{precision}"
+    if lanes is not None:
+        name, scratch = f"{name}_global", (ptr(lanes),)
+    else:
+        scratch = ()
+    rc = getattr(lib, name)(
         ptr(caps), ptr(src), ptr(dst), ptr(eid), ptr(eg_cap), ptr(in_cap),
         ptr(ed_cap), ptr(active), ptr(changed), ptr(prev),
-        *(ptr(t) for t in segments), ptr(out), nc, nv, ne,
+        *(ptr(t) for t in segments), *scratch, ptr(out), nc, nv, ne,
         n_edges_bound, -1 if precision == "f64" else n_iters,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"waterfill kernel launch failed: CUDA error {rc}")
-    _count(_launches[precision])
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _count((_launches if lanes is None else _global_launches)[precision])
     return out
 
 

@@ -20,8 +20,8 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.device import resolve_device
-from repro_torch.models import count_params, init_params
-from repro_torch.serve import make_prefill_step, make_serve_step
+from repro_torch.models import count_params, decode_step, init_params
+from repro_torch.serve import make_prefill_step
 from repro_torch.sharding.specs import ShardingRules
 
 RULES = ShardingRules(batch=None, fsdp=None, tp=None)
@@ -34,7 +34,9 @@ def _sync(device: torch.device) -> None:
 
 def generate(cfg, params, tokens, n_decode: int) -> dict:
     """Prefill ``tokens`` [B, S], then ``n_decode - 1`` greedy steps, with
-    KV buffers of S + n_decode.
+    KV buffers of S + n_decode. Each step is ``decode_step`` and the
+    argmax of its logits, which is ``make_serve_step``'s step with the
+    logits kept.
 
     Returns {"tokens": [B, n_decode] int32 (the first from the prefill's
     logits), "logits": [n_decode, B, V] f32, "prefill_s", "decode_s"}; the
@@ -42,7 +44,6 @@ def generate(cfg, params, tokens, n_decode: int) -> dict:
     device = tokens.device
     prefill_step = make_prefill_step(cfg, RULES,
                                      t_max=tokens.shape[1] + n_decode)
-    serve_step = make_serve_step(cfg, RULES)
     _sync(device)
     t0 = time.perf_counter()
     state, logits = prefill_step(params, {"tokens": tokens})
@@ -52,7 +53,8 @@ def generate(cfg, params, tokens, n_decode: int) -> dict:
     out_tokens, out_logits = [tok], [logits]
     t0 = time.perf_counter()
     for _ in range(n_decode - 1):
-        tok, state, logits = serve_step(params, state, tok)
+        logits, state = decode_step(cfg, RULES, params, state, tok)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out_tokens.append(tok)
         out_logits.append(logits)
     _sync(device)

@@ -20,15 +20,14 @@ def make_prefill_step(cfg: ModelConfig, rules: ShardingRules, *, t_max: int):
 
 def make_serve_step(cfg: ModelConfig, rules: ShardingRules, *,
                     greedy: bool = True):
-    """serve_step(params, state, tokens[B,1]) -> (next_tokens[B,1], state,
-    logits[B,V]); the state's caches are updated in place. Only greedy
-    decoding exists, as in the reference."""
-    if not greedy:
-        raise NotImplementedError("only greedy decoding is implemented")
+    """serve_step(params, state, tokens[B,1]) -> (next_tokens[B,1] int32,
+    state); the state's caches are updated in place. Both settings of
+    ``greedy`` take the argmax, as the reference's do. A caller that needs
+    the logits calls ``decode_step`` itself."""
+    del greedy  # the reference samples greedily either way
 
     def serve_step(params, state, tokens):
         logits, state = decode_step(cfg, rules, params, state, tokens)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return nxt, state, logits
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], state
 
     return serve_step

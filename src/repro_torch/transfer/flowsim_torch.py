@@ -130,6 +130,10 @@ class _Cn:
     dst32: torch.Tensor
     eid32: torch.Tensor
     segs: wf.Segments  # CSR lists of the maps above
+    # the water-filling kernel's per-lane scratch when a solve's lanes do
+    # not fit one block's shared memory (its device-memory variant), else
+    # None; allocated once here, outside any graph capture
+    wf_lanes: torch.Tensor | None
     je: torch.Tensor  # [NCp] job * NE + edge
     je_lists: tuple  # CSR lists of je
     rows: torch.Tensor  # [NS + 1, 1] stage ids (cascade window gather)
@@ -185,13 +189,14 @@ def _compute_rates(st: _St, cn: _Cn, sc: _Sc, active, changed):
             st.rate_eff.to(f32), cn.src32, cn.dst32, cn.vm_eg.to(f32),
             cn.vm_in.to(f32), cn.eid32, st.edge_cap.to(f32), active,
             precision="f32", changed=changed,
-            prev=st.rates.to(f32), segments=cn.segs,
+            prev=st.rates.to(f32), segments=cn.segs, lanes=cn.wf_lanes,
         )
         return r.to(st.rates.dtype)
     return wf.waterfill_rates(
         st.rate_eff, cn.src32, cn.dst32, cn.vm_eg, cn.vm_in, cn.eid32,
         st.edge_cap, active, precision="f64", n_edges_bound=sc.ne_bound,
         changed=changed, prev=st.rates, segments=cn.segs,
+        lanes=cn.wf_lanes,
     )
 
 
@@ -494,6 +499,17 @@ def _segment(st: _St, cn: _Cn, sc: _Sc, block: int,
 
 
 # ------------------------------------------------------------------ host side
+def _wf_lanes(ncp: int, nv: int, ne: int, solver: str, dev):
+    """The scratch that sends every solve of this scenario to the
+    water-filling kernel's device-memory variant, where its lanes do not
+    fit one block's shared memory; None where they do. The CPU's plain
+    solver ignores it."""
+    if not wf.lanes_in_device_memory(ncp, nv, ne, solver):
+        return None
+    n = wf.scratch_bytes(ncp, 8 if solver == "f64" else 4)
+    return torch.empty(n, dtype=torch.uint8, device=dev)
+
+
 def _build(su, cfg, sched, solver: str, dev):
     """Materialized scenario -> (static config, constants, initial state)."""
     nc = int(su.conn_job.shape[0])
@@ -566,6 +582,7 @@ def _build(su, cfg, sched, solver: str, dev):
         vm_in=t(su.vm_in_cap, torch.float64),
         src32=src32, dst32=dst32, eid32=eid32,
         segs=wf.build_segments(src32, dst32, eid32, nv, ne),
+        wf_lanes=_wf_lanes(ncp, nv, ne, solver, dev),
         je=je, je_lists=wf.csr(je, j * ne),
         rows=torch.arange(ns + 1, device=dev)[:, None],
         win=torch.arange(maxcs, device=dev)[None, :],

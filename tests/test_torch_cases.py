@@ -110,6 +110,28 @@ def segsum_case(name):
     raise KeyError(name)
 
 
+# a fleet of direct jobs of 8 VMs x 64 connections each (512 lanes a job,
+# the topology's per-VM and per-region limits) over three routes: about
+# 22 such jobs fill one block's shared memory in a water-filling solve, so
+# 48 take twice that (24,576 lanes, 768 VMs)
+FLEET_ROUTES = (("aws:us-east-1", "aws:ap-southeast-2"),
+                ("aws:us-west-2", "aws:eu-central-1"),
+                ("gcp:us-central1", "gcp:europe-west1"))
+
+
+def fleet_jobs(top, n_jobs: int, chunks: int = 8):
+    """``n_jobs`` staggered direct jobs of 8 VMs x 64 connections and
+    ``chunks`` chunks of 16 MB each, built with the port's own planner."""
+    from repro_torch.core import direct_plan
+    from repro_torch.transfer import TransferJob
+
+    return [TransferJob(
+        direct_plan(top, *FLEET_ROUTES[i % 3], chunks * 16.0 / 1024,
+                    num_vms=8),
+        f"fleet{i}", chunk_mb=16.0, arrival_s=0.01 * i)
+        for i in range(n_jobs)]
+
+
 SIM_SCENARIOS = ("plain", "every_event", "horizon_cut", "horizon_drain",
                  "contention_off", "multicast_mix", "tied_arrivals",
                  "relay_buffer_1")

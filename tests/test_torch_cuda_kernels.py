@@ -30,6 +30,7 @@ from test_torch_cases import (
     SEGSUM_CASES,
     SIM_SCENARIOS,
     WATERFILL_CHAIN_CASES,
+    fleet_jobs,
     qkv,
     quantize_inputs,
     segsum_case,
@@ -178,6 +179,62 @@ def test_waterfill_takes_the_solves_an_all_shared_layout_took(nv, ne):
     _solves_bitwise(_limit_args(nv, ne)(n, "cuda"))
 
 
+@pytest.mark.gpu
+def test_waterfill_size_mirror_equals_the_library():
+    """``ops.smem_bytes``, ``ops.scratch_bytes`` and ``ops.SMEM_LIMIT``,
+    which the sim uses to pick a kernel without loading the library, are
+    the library's own numbers."""
+    _need_card()
+    from repro_torch.kernels.waterfill.build import load
+
+    lib = load()
+    for elem in (8, 4):
+        assert lib.waterfill_smem_limit(elem) == wf_ops.SMEM_LIMIT
+        for nc, nv, ne in ((0, 8, 2), (1, 1, 0), (600, 20, 1),
+                           (12_345, 64, 16), (24_576, 768, 3)):
+            assert (wf_ops.smem_bytes(nc, nv, ne, elem)
+                    == lib.waterfill_smem_bytes(nc, nv, ne, elem))
+            assert (wf_ops.scratch_bytes(nc, elem)
+                    == lib.waterfill_scratch_bytes(nc, elem))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nv,ne", [(8, 2), (64, 16)])
+def test_device_memory_variant_bitwise_at_twice_the_limit(nv, ne):
+    """Twice the lanes one block's shared memory takes: the shared entry
+    raises, the device-memory variant solves them bitwise equal to the
+    plain f64 version (f32 within its tolerance) and counts on its own
+    counter."""
+    _need_card()
+    from repro_torch.kernels.waterfill.build import load
+
+    lib = load()
+    lo = _largest(lambda n: lib.waterfill_smem_bytes(n, nv, ne, 8)
+                  <= lib.waterfill_smem_limit(8))
+    a = _limit_args(nv, ne)(2 * lo, "cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        wf_ops.waterfill_rates(**a)
+    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        args = {k: t.to(dtype) if t.is_floating_point() else t
+                for k, t in a.items()}
+        lanes = torch.empty(wf_ops.scratch_bytes(2 * lo, 8 if dtype ==
+                                                 torch.float64 else 4),
+                            dtype=torch.uint8, device="cuda")
+        count = REGISTRY.counter(f"kernels.waterfill_{precision}_global"
+                                 ".launches")
+        shared = REGISTRY.counter(f"kernels.waterfill_{precision}.launches")
+        n0, s0 = count.value, shared.value
+        got = wf_ops.waterfill_rates(**args, precision=precision,
+                                     lanes=lanes).cpu()
+        assert (count.value, shared.value) == (n0 + 1, s0)
+        want = wf_ops.waterfill_rates(
+            **{k: t.cpu() for k, t in args.items()}, precision=precision)
+        if precision == "f64":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def port_top():
     from repro_torch.core import default_topology
@@ -222,6 +279,31 @@ def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
     assert d["sim.iterations"] >= got.events
     assert d["kernels.waterfill_f64.launches"] == d["sim.iterations"]
     assert d["kernels.segsum_ordered.launches"] == d["sim.iterations"]
+
+
+@pytest.mark.gpu
+def test_card_sim_at_twice_the_shared_memory_limit_equals_cpu(port_top):
+    """48 jobs of 8 VMs x 64 connections (24,576 lanes, twice what one
+    block's shared memory takes): the card's sim runs every solve on the
+    device-memory variant and equals the CPU run field for field, with the
+    same Skytrace stream."""
+    _need_card()
+    jobs = fleet_jobs(port_top, 48)
+    names = ("sim.iterations", "kernels.waterfill_f64.launches",
+             "kernels.waterfill_f64_global.launches")
+    before = {n: REGISTRY.counter(n).value for n in names}
+    got, got_tr = _sim(jobs, [], {}, None)
+    torch.cuda.synchronize()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    want, want_tr = _sim(jobs, [], {}, "cpu")
+    assert got.events == want.events and got.time_s == want.time_s
+    for a, b in zip(got.jobs, want.jobs):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert got_tr == want_tr
+    assert all(j.status == "done" for j in got.jobs)
+    assert d["kernels.waterfill_f64.launches"] == 0
+    assert d["kernels.waterfill_f64_global.launches"] == d["sim.iterations"]
+    assert d["sim.iterations"] >= got.events
 
 
 @pytest.mark.gpu
@@ -346,6 +428,64 @@ def test_ssd_kernel_matches_plain_version(dtype, b, h, s, p, n, q):
     torch.testing.assert_close(y.cpu().float(), y_want.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(state.cpu(), s_want, atol=tol, rtol=tol)
+
+
+def _ssd_case(seed, b, h, s, p, n, dtype):
+    x, dt, a, bm, cm = (torch.tensor(t) for t in ssd_inputs(
+        seed, b, h, s, p, n, layout="bshp"))
+    return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,p,n,q", [
+    (1, 2, 1024, 64, 64, 256),   # Zamba2-7B's head shape
+    (2, 3, 1000, 64, 64, 256),   # a ragged S, padded with dt = 0
+    (1, 3, 512, 32, 128, 256),   # P 32, N 128 (two state atoms)
+    (2, 2, 768, 64, 64, 128),    # two heads of each batch row share B, C
+    (1, 2, 320, 16, 64, 64),     # the smallest chunk it takes
+])
+def test_wgmma_ssd_kernel_matches_plain_version(b, h, s, p, n, q):
+    """The tensor-core kernel (bf16) against the plain version at the
+    reference's bf16 tolerance, 1e-1 (y and the final state)."""
+    _need_card()
+    args = _ssd_case(8, b, h, s, p, n, torch.bfloat16)
+    assert ssd_ops.kernel_for(torch.bfloat16, q, p, n) == "wgmma"
+    count = REGISTRY.counter("kernels.ssd_scan.launches")
+    wgmma = REGISTRY.counter("kernels.ssd_scan.wgmma_launches")
+    n0, w0 = count.value, wgmma.value
+    y, state = ssd_ops.ssd_scan(*(t.cuda() for t in args), chunk=q)
+    torch.cuda.synchronize()
+    assert (count.value, wgmma.value) == (n0 + 1, w0 + 1)
+    y_want, s_want = ssd_ops.ssd_scan_plain(*args, chunk=q)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(state).all())
+    torch.testing.assert_close(y.cpu().float(), y_want.float(), atol=1e-1,
+                               rtol=1e-1)
+    torch.testing.assert_close(state.cpu(), s_want, atol=1e-1, rtol=1e-1)
+
+
+@pytest.mark.gpu
+def test_vector_ssd_kernel_still_takes_f32_and_other_bf16_shapes():
+    """f32 and the bf16 shapes off the tensor-core kernel's grid launch
+    the vector-unit kernel; ``ssd_scan_on("vector", ...)`` runs it on a
+    bf16 shape the tensor-core kernel takes."""
+    _need_card()
+    wgmma = REGISTRY.counter("kernels.ssd_scan.wgmma_launches")
+    for dtype, (b, h, s, p, n, q), kernel in (
+            (torch.float32, (1, 2, 512, 64, 64, 256), None),
+            (torch.bfloat16, (2, 3, 128, 16, 32, 32), None),
+            (torch.bfloat16, (1, 2, 512, 64, 64, 256), "vector")):
+        args = _ssd_case(9, b, h, s, p, n, dtype)
+        w0 = wgmma.value
+        on = [t.cuda() for t in args]
+        y, state = (ssd_ops.ssd_scan(*on, chunk=q) if kernel is None
+                    else ssd_ops.ssd_scan_on(kernel, *on, chunk=q))
+        torch.cuda.synchronize()
+        assert wgmma.value == w0
+        y_want, s_want = ssd_ops.ssd_scan_plain(*args, chunk=q)
+        tol = 1e-3 if dtype == torch.float32 else 1e-1
+        torch.testing.assert_close(y.cpu().float(), y_want.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(state.cpu(), s_want, atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu

@@ -34,3 +34,18 @@ def test_adding_a_file_or_changing_flags_changes_the_library(tmp_path):
                     lambda lib: None)
     assert other.path() != added
     assert not (tmp_path / "pkg" / "_build").exists()  # nothing was built
+
+
+def test_editing_a_header_in_a_dependency_changes_the_library(tmp_path):
+    """A source that includes another kernel package's headers names that
+    package's ``csrc/`` in ``deps``; editing a header there rebuilds."""
+    csrc, _ = _library(tmp_path)
+    other = tmp_path / "other" / "csrc"
+    other.mkdir(parents=True)
+    (other / "shared.cuh").write_text("#define DEPTH 4\n")
+    lib = Library(csrc / "k.cu", BASE_FLAGS, lambda lib: None, deps=(other,))
+    before = lib.path()
+    assert before != Library(csrc / "k.cu", BASE_FLAGS,
+                             lambda lib: None).path()
+    (other / "shared.cuh").write_text("#define DEPTH 8\n")
+    assert lib.path() != before

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import Planner, PlanSpec, default_topology, direct_plan
 from repro.obs import trace as ref_trace
@@ -39,7 +40,7 @@ from repro_torch.core import default_topology as port_default_topology
 from repro_torch.transfer import flowsim_torch, simulate
 from repro_torch.transfer.flowsim_torch import simulate_multi_torch
 
-from test_torch_cases import SIM_SCENARIOS, sim_scenario
+from test_torch_cases import SIM_SCENARIOS, fleet_jobs, sim_scenario
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "gcp:us-central1"
@@ -319,3 +320,30 @@ def test_state_keeps_its_storage_for_the_whole_run(name, port_top,
     assert len(set(seen[0])) == len(seen[0])  # no two share storage
     if name == "relay_buffer_1":
         assert PORT_REGISTRY.counter("sim.seq_cascades").value > seq0
+
+
+@pytest.mark.parametrize("n_jobs,solver,fit", [
+    (4, "f64", True), (22, "f64", True), (23, "f64", False),
+    (48, "f64", False), (23, "f32", True), (48, "f32", False)])
+def test_sim_sends_solves_past_shared_memory_to_the_device_memory_variant(
+        n_jobs, solver, fit, port_top):
+    """The sim decides once, when it builds its state, which water-filling
+    kernel its solves take: where the scenario's lanes do not fit one
+    block's shared memory (by ``ops.smem_bytes``, the mirror of the
+    library's size rule), it allocates the device-memory variant's scratch
+    of ``ops.scratch_bytes``; otherwise none."""
+    from repro_torch.kernels.waterfill import ops as wf
+    from repro_torch.transfer.events import materialize_jobs
+    from repro_torch.transfer.simconfig import resolve
+
+    su = materialize_jobs(fleet_jobs(port_top, n_jobs))
+    sc, cn, _ = flowsim_torch._build(su, resolve(None), [], solver, "cpu")
+    elem = 8 if solver == "f64" else 4
+    fits = wf.smem_bytes(sc.ncp, sc.nv, sc.ne, elem) <= wf.SMEM_LIMIT
+    assert fits == fit
+    if fits:
+        assert cn.wf_lanes is None
+    else:
+        assert cn.wf_lanes.dtype == torch.uint8
+        assert cn.wf_lanes.numel() == wf.scratch_bytes(sc.ncp, elem)
+        assert wf.smem_bytes(0, sc.nv, sc.ne, elem) <= wf.SMEM_LIMIT

@@ -88,3 +88,30 @@ def test_cpu_calls_do_not_count_and_other_devices_raise():
     assert REGISTRY.counter("kernels.ssd_scan.launches").value == n0
     with pytest.raises(ValueError):
         ops.ssd_scan(*(t.to("meta") for t in arrays), chunk=16)
+
+
+@pytest.mark.parametrize("dtype,q,p,n,want", [
+    (torch.bfloat16, 256, 64, 64, "wgmma"),    # Zamba2-7B's chunk, P, N
+    (torch.bfloat16, 256, 64, 128, "wgmma"),
+    (torch.bfloat16, 256, 32, 128, "wgmma"),
+    (torch.bfloat16, 64, 32, 64, "wgmma"),
+    (torch.float32, 256, 64, 64, "vector"),    # f32 keeps the vector units
+    (torch.float32, 64, 32, 64, "vector"),
+    (torch.bfloat16, 16, 16, 16, "vector"),    # the small test chunks
+    (torch.bfloat16, 32, 16, 32, "vector"),
+    (torch.bfloat16, 100, 64, 64, "vector"),   # a chunk cut to a short S
+    (torch.bfloat16, 256, 64, 136, "vector"),  # state past 128
+    (torch.bfloat16, 256, 12, 64, "vector"),   # head dim off the 8 grid
+])
+def test_kernel_routing_rule(dtype, q, p, n, want):
+    """Which CUDA kernel a card call takes is a pure rule of type and
+    shape: bf16 at the tensor-core kernel's shapes takes it, f32 and the
+    other shapes the vector-unit kernel."""
+    assert ops.kernel_for(dtype, q, p, n) == want
+
+
+def test_named_kernel_entry_runs_only_on_the_card():
+    arrays = [torch.tensor(t) for t in ssd_inputs(6, 1, 2, 64, 8, 8,
+                                                layout="bshp")]
+    with pytest.raises(ValueError, match="runs on the card"):
+        ops.ssd_scan_on("vector", *arrays, chunk=64)
