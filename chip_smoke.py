@@ -12,7 +12,13 @@ the CPU), then at 100,000 chunks; on the card the sim runs each block of
 iterations as a replayed CUDA graph, and the sim phases report the graphs
 captured, their capture seconds and their replays; ``[sim_1e5]``
 brackets every block with CUDA events for the card's idle share. The
-model path follows: the flash
+transfer service follows, with the launch counts set to 0 again: the
+multi-job benchmark's service block at 10,240 chunks a job
+(``[service]``) and the chaos benchmark's 16 services
+(``[service_chaos]``), each run by ``TransferService`` on the card (torch
+IPM, the card's sim) and on the CPU (torch IPM, the ``soa`` engine) and
+held equal run for run; then the sim's kernels against their plain
+versions at the service's shapes. The model path follows: the flash
 attention kernels (bf16 on the tensor cores, f32 on the vector units) and
 the SSD scan kernel against their plain versions at Zamba2-7B's shapes
 and others, both flash kernels timed beside
@@ -67,6 +73,18 @@ FLEET_JOBS, FLEET_CHUNKS, FLEET_CHUNK_MB = 48, 8, 16.0
 FLEET_ROUTES = (("aws:us-east-1", "aws:ap-southeast-2"),
                 ("aws:us-west-2", "aws:eu-central-1"),
                 ("gcp:us-central1", "gcp:europe-west1"))
+# [service]: benchmarks/multijob_bench.py's service block (:24-37, :63-66):
+# jobs a and b on the Fig. 6 route (b at 1 s), c from SERVICE_SRC2, a
+# 4 Gbps goal each, at the [sim] phase's 10,240 chunks of 64 MB a job
+SERVICE_SRC2 = "gcp:us-central1"
+SERVICE_VOLUME_GB, SERVICE_GOAL_GBPS = 640.0, 4.0
+# [service_chaos]: benchmarks/chaos_bench.py:20-64 at its full (non-FAST)
+# size: seeds 0-7, each with and without the breaker, two 4 GB jobs in
+# 16 MB chunks
+CHAOS_SRC, CHAOS_DST, CHAOS_SRC2 = ("aws:us-west-2", "aws:eu-central-1",
+                                    "gcp:us-central1")
+CHAOS_SEEDS = tuple(range(8))
+CHAOS_VOLUME_GB = 4.0
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and the vector (non-tensor)
 # peaks the kernels' float operations run at
 HBM_BYTES_S = 3.35e12
@@ -375,44 +393,53 @@ def sass_count(lib: Path, opcode: str) -> dict:
     return counts
 
 
-def phase_waterfill(shapes, dev, errs):
+def hold_sim_kernels(label, su, dev, errs) -> int:
+    """The sim's kernels against their plain versions at a materialized
+    scenario's shapes: water-filling (f64 bitwise, f32 within 1e-5) over
+    seeded live subsets with and without edges, and the ordered segment
+    sum (bitwise) at its per-(job, edge) map. Returns the water-filling
+    cases run."""
     from repro_torch.kernels.waterfill import ops, ref
 
     n = 0
-    for label, su in shapes.items():
-        for seed in range(4):
-            for edges in (False, True):
-                for precision, dtype in (("f64", torch.float64),
-                                         ("f32", torch.float32)):
-                    args = wf_inputs(su, dev, dtype, seed=seed, edges=edges)
-                    got = ops.waterfill_rates(**args, precision=precision)
-                    want = ops.waterfill_rates(**to_cpu(args),
-                                               precision=precision)
-                    got = got.cpu()
-                    err = float((got - want).abs().max())
-                    errs[f"waterfill_{precision}"] = max(
-                        errs.get(f"waterfill_{precision}", 0.0), err
-                    )
-                    if precision == "f64":
-                        check(torch.equal(got, want),
-                              f"f64 kernel != plain ({label}, seed {seed})")
-                    else:
-                        torch.testing.assert_close(got, want, rtol=1e-5,
-                                                   atol=1e-5)
-                    n += 1
-        # the ordered segment sum at the sim's (job, edge) map
-        je = torch.as_tensor(su.conn_job * len(su.edges_used)
-                             + su.conn_edge, device=dev)
-        nseg = len(su.arrivals) * len(su.edges_used)
-        w = torch.as_tensor(np.random.default_rng(9).uniform(
-            0, 3, je.shape[0]), device=dev)
-        got = ops.segment_sum_ordered(w, je, nseg).cpu()
-        want = ref.segment_sum_ordered(w.cpu(), je.cpu(), nseg)
-        check(torch.equal(got, want), f"segment sum != plain ({label})")
-        errs["segsum_ordered_f64"] = max(
-            errs.get("segsum_ordered_f64", 0.0),
-            float((got - want).abs().max()),
-        )
+    for seed in range(4):
+        for edges in (False, True):
+            for precision, dtype in (("f64", torch.float64),
+                                     ("f32", torch.float32)):
+                args = wf_inputs(su, dev, dtype, seed=seed, edges=edges)
+                got = ops.waterfill_rates(**args, precision=precision)
+                want = ops.waterfill_rates(**to_cpu(args),
+                                           precision=precision)
+                got = got.cpu()
+                err = float((got - want).abs().max())
+                errs[f"waterfill_{precision}"] = max(
+                    errs.get(f"waterfill_{precision}", 0.0), err
+                )
+                if precision == "f64":
+                    check(torch.equal(got, want),
+                          f"f64 kernel != plain ({label}, seed {seed})")
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-5)
+                n += 1
+    je = torch.as_tensor(su.conn_job * len(su.edges_used) + su.conn_edge,
+                         device=dev)
+    nseg = len(su.arrivals) * len(su.edges_used)
+    w = torch.as_tensor(np.random.default_rng(9).uniform(
+        0, 3, je.shape[0]), device=dev)
+    got = ops.segment_sum_ordered(w, je, nseg).cpu()
+    want = ref.segment_sum_ordered(w.cpu(), je.cpu(), nseg)
+    check(torch.equal(got, want), f"segment sum != plain ({label})")
+    errs["segsum_ordered_f64"] = max(errs.get("segsum_ordered_f64", 0.0),
+                                     float((got - want).abs().max()))
+    return n
+
+
+def phase_waterfill(shapes, dev, errs):
+    from repro_torch.kernels.waterfill import ops, ref
+
+    n = sum(hold_sim_kernels(label, su, dev, errs)
+            for label, su in shapes.items())
     times = {}
     for label, su in shapes.items():  # every lane live: the longest solve
         args = wf_inputs(su, dev, torch.float64)
@@ -778,6 +805,190 @@ def phase_sim_1e5(jobs):
         device_us_per_iteration=busy_ms * 1e3 / graphs["iterations"],
         loop_s=loop_ms / 1e3, device_idle_share=1.0 - busy_ms / 1e3 / wall,
         device_idle_share_loop=1.0 - busy_ms / loop_ms)
+
+
+# --------------------------------------------------------------- service
+def service_record(svc, rep) -> dict:
+    """Everything a service run decides: ``ServiceReport.to_dict()``
+    without its ``metrics`` section (the registry is process-wide), every
+    ``ReplanRecord`` but its wall-clock ``latency_s``, the breaker's
+    transitions, each job's final plan and the service's degraded and
+    gray views."""
+    def plan(p):
+        return {"status": p.solver_status, "N": np.asarray(p.N).tolist(),
+                "M": np.asarray(p.M).tolist(), "F": np.asarray(p.F).tolist()}
+
+    d = rep.to_dict()
+    d.pop("metrics", None)
+    d["replan_records"] = [
+        {**{f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+            if f.name not in ("latency_s", "plan")}, "plan": plan(r.plan)}
+        for r in rep.replans
+    ]
+    d["transitions"] = [dataclasses.asdict(t) for t in rep.quarantines]
+    d["final_plans"] = [plan(j.plan) for j in rep.jobs]
+    d["degraded_links"] = sorted(svc.degraded_links.items())
+    d["gray"] = sorted(svc._gray.items())
+    return d
+
+
+def first_difference(a, b, path="report"):
+    """Where two records first differ, with both values, or None."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return f"{path}: keys {sorted(a)} != {sorted(b)}"
+        for k in a:
+            d = first_difference(a[k], b[k], f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path}: length {len(a)} != {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = first_difference(x, y, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if a == b else f"{path}: {a!r} != {b!r}"
+
+
+def multijob_service(top, **svc_kw):
+    """``benchmarks/multijob_bench.py``'s service block (:24-37, :63-66) at
+    the [sim] phase's chunk count: three jobs of SERVICE_VOLUME_GB in
+    64 MB chunks, a link degrade at 2 s and a VM failure at 4 s."""
+    from repro_torch.transfer import (LinkDegrade, TransferRequest,
+                                      TransferService, VMFailure)
+
+    svc = TransferService(top, max_relays=6, **svc_kw)
+    for name, src, arrival in (("a", SRC, 0.0), ("b", SRC, 1.0),
+                               ("c", SERVICE_SRC2, 0.0)):
+        svc.submit(TransferRequest(name, src, DST, SERVICE_VOLUME_GB,
+                                   SERVICE_GOAL_GBPS, arrival_s=arrival,
+                                   chunk_mb=CHUNK_MB))
+    s, d = top.index(SRC), top.index(DST)
+    faults = [LinkDegrade(t_s=2.0, src=s, dst=d, factor=0.5),
+              VMFailure(t_s=4.0, job=0, region=s, count=1)]
+    return [(svc, svc.run(faults=faults, link_capacity_scale=0.8))]
+
+
+def chaos_suite(top, **svc_kw):
+    """``benchmarks/chaos_bench.py``'s ``_run_suite`` (:20-64) at its full
+    size: CHAOS_SEEDS, the breaker-and-budget arm, then the baseline."""
+    from repro_torch.transfer import (BreakerConfig, ChaosScenario,
+                                      DegradationLadder, LinkBreaker,
+                                      TransferRequest, TransferService)
+
+    s, d = top.index(CHAOS_SRC), top.index(CHAOS_DST)
+    s2 = top.index(CHAOS_SRC2)
+    out = []
+    for with_breaker in (True, False):
+        for seed in CHAOS_SEEDS:
+            sc = ChaosScenario(top, seed=seed, horizon_s=6.0, n_brownouts=1,
+                               n_gray=1, n_flapping=1, flap_count=(8, 12),
+                               flap_period_s=(2.0, 3.0),
+                               links=[(s, d), (s2, d)])
+            br = (LinkBreaker(BreakerConfig(k=3, window_s=20.0,
+                                            cooldown_s=8.0))
+                  if with_breaker else None)
+            svc = TransferService(
+                top, max_relays=6, breaker=br,
+                degradation=DegradationLadder(pressure=0.25), **svc_kw)
+            budget = 10_000 if with_breaker else None
+            for name, src, arrival in (("a", CHAOS_SRC, 0.0),
+                                       ("b", CHAOS_SRC2, 1.0)):
+                svc.submit(TransferRequest(
+                    name, src, CHAOS_DST, CHAOS_VOLUME_GB, 2.0,
+                    arrival_s=arrival, deadline_s=40.0, retry_budget=budget))
+            out.append((svc, svc.run(faults=sc.events(2))))
+    return out
+
+
+def phase_service(name, suite, top, counters) -> list:
+    """One service configuration on the card (``backend="torch"``,
+    ``engine="torch"``, the card by default) and on the CPU
+    (``backend="torch"``, ``device="cpu"``, ``engine="soa"``), held equal
+    run for run by ``service_record``. Every block of the card's sim
+    iterations is bracketed by CUDA events, as in [sim_1e5]: the idle
+    share is the rest of the card run's wall, so it counts the planner's
+    torch IPM on the card as idle. Returns the card run's reports."""
+    from repro_torch.obs.metrics import REGISTRY
+
+    before = {k: REGISTRY.counter(c).value for k, c in counters.items()}
+    g0 = graph_counts()
+    with timed_blocks() as spans:
+        t0 = time.perf_counter()
+        card = suite(top, backend="torch", engine="torch")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    graphs = graph_delta(g0)
+    launches = {k: int(REGISTRY.counter(c).value - before[k])
+                for k, c in counters.items()}
+    busy_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    t0 = time.perf_counter()
+    cpu = suite(top, backend="torch", device="cpu", engine="soa")
+    cpu_wall = time.perf_counter() - t0
+    check(len(card) == len(cpu), f"{name}: run counts differ")
+    for i, ((cs, cr), (ps, pr)) in enumerate(zip(card, cpu)):
+        diff = first_difference(service_record(cs, cr),
+                                service_record(ps, pr))
+        check(diff is None, f"{name}: run {i}: card != CPU at {diff}")
+    reps = [r for _, r in card]
+    jobs = [j for r in reps for j in r.jobs]
+    lost = sum(j.lost_chunks for j in jobs)
+    check(lost == 0, f"{name}: {lost} chunks lost")
+    events = sum(r.sim_events for r in reps)
+    replans = [x for r in reps for x in r.replans]
+    wf = sum(n for k, n in launches.items() if k.startswith("waterfill"))
+    check(wf > 0 and launches["segsum_ordered_f64"] > 0,
+          f"{name}: the sim's kernels were not launched: {launches}")
+    say(name, runs=len(reps), jobs=len(jobs),
+        chunks=sum(j.n_chunks for j in jobs), wall_s=wall,
+        cpu_wall_s=cpu_wall, segments=sum(r.segments for r in reps),
+        sim_events=events, sim_events_per_s=events / wall,
+        cpu_sim_events_per_s=events / cpu_wall, replans=len(replans),
+        replan_latency_ms_median=float(np.median(
+            [x.latency_s for x in replans])) * 1e3 if replans else None,
+        graph_captures=graphs["graph_captures"],
+        graph_capture_s=graphs["graph_capture_s"],
+        graph_replays=graphs["graph_replays"],
+        sim_iterations=graphs["iterations"], blocks=len(spans),
+        blocks_device_s=busy_s, device_idle_share=1.0 - busy_s / wall,
+        launches=launches, equal_cpu=True,
+        not_compared=["ReplanRecord.latency_s", "to_dict()['metrics']"],
+        done=sum(j.status == "done" for j in jobs),
+        slo_violations=sum(j.deadline_met is False for j in jobs),
+        quarantines=sum(len(r.quarantines) for r in reps), lost_chunks=lost)
+    return reps
+
+
+def service_path(top, counters) -> dict:
+    """The transfer service on the card: each configuration's reports."""
+    return {"service": phase_service("service", multijob_service, top,
+                                     counters),
+            "service_chaos": phase_service("service_chaos", chaos_suite, top,
+                                           counters)}
+
+
+def phase_service_kernels(reps: dict, dev, errs) -> None:
+    """The sim's kernels against their plain versions again, at the
+    service's shapes: each configuration's final plans at full volume."""
+    from repro_torch.transfer import TransferJob
+    from repro_torch.transfer.events import materialize_jobs
+
+    shapes = {}
+    for label, runs in reps.items():
+        rep = runs[0]
+        jobs = [TransferJob(j.plan.with_volume(j.request.volume_gb),
+                            j.request.name, arrival_s=j.request.arrival_s,
+                            chunk_mb=j.request.chunk_mb) for j in rep.jobs]
+        su = materialize_jobs(jobs)
+        shapes[label] = {"conns": int(su.conn_job.shape[0]),
+                         "vms": int(su.vm_eg_cap.shape[0]),
+                         "edges": len(su.edges_used)}
+        shapes[label]["cases"] = hold_sim_kernels(label, su, dev, errs)
+    say("service_kernels", shapes=shapes, f64_bitwise=True,
+        segsum_bitwise=True, max_abs_err=errs)
 
 
 def phase_profile(jobs):
@@ -1995,10 +2206,22 @@ def main(argv=None) -> int:
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")
 
+    # ---- the service path: every launch count starts at 0 here
+    for c in counters.values():
+        REGISTRY.counter(c).reset()
+    service_reps = service_path(top, counters)
+    service_launches = {k: int(REGISTRY.counter(c).value)
+                        for k, c in counters.items()}
+    phase_service_kernels(service_reps, dev, errs)
+
     phase_profile(big)
     sim_shapes = {"sim": materialize_jobs(jobs),
                   "sim_1e5": materialize_jobs(big), "fleet": fleet_su}
-    kernels, shapes = phase_kernels(sim_shapes, dev, launches, errs)
+    kernels, shapes = phase_kernels(sim_shapes, dev, {
+        k: n + service_launches[k] for k, n in launches.items()}, errs)
+    for k in kernels:
+        k["launches_by_path"] = {"sim": launches[k["name"]],
+                                 "service": service_launches[k["name"]]}
     kernels += model_path(errs)
     kernels += train_path(errs)
     line = {"kernels": kernels}

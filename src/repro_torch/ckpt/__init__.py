@@ -4,3 +4,11 @@ from .checkpoint import (  # noqa: F401
     load_checkpoint,
     save_checkpoint,
 )
+from .replicate import replicate_checkpoint  # noqa: F401
+
+__all__ = [
+    "CheckpointManager",
+    "load_checkpoint",
+    "replicate_checkpoint",
+    "save_checkpoint",
+]

@@ -5,6 +5,7 @@ from .profiles import default_topology, grid_fingerprint, toy_topology  # noqa: 
 from .plan import McTree, MulticastPlan, TransferPlan  # noqa: F401
 from .spec import PlanSpec  # noqa: F401
 from .planner import Planner, ParetoPoint  # noqa: F401
+from .ron import ron_plan  # noqa: F401
 from .baselines import (  # noqa: F401
     AWS_DATASYNC,
     AZURE_AZCOPY,
@@ -32,5 +33,6 @@ __all__ = [
     "direct_plan",
     "grid_fingerprint",
     "gridftp_plan",
+    "ron_plan",
     "toy_topology",
 ]

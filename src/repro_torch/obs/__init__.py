@@ -1,9 +1,12 @@
-"""Skytrace for the port: the metrics registry and the ring-buffer tracer
-(copies of the reference package's ``obs/metrics.py`` and ``obs/trace.py``).
+"""Skytrace for the port: the metrics registry, the ring-buffer tracer and
+its exports (copies of the reference package's ``obs/``). ``python -m
+repro_torch.obs`` runs a seeded chaos scenario and exports its
+(byte-deterministic) sim trace.
 """
 
 from __future__ import annotations
 
+from .export import text_timeline, to_chrome_trace, trace_json, write_trace
 from .metrics import (
     Counter,
     Gauge,
@@ -25,4 +28,8 @@ __all__ = [
     "enable",
     "get_registry",
     "get_tracer",
+    "text_timeline",
+    "to_chrome_trace",
+    "trace_json",
+    "write_trace",
 ]

@@ -22,8 +22,8 @@ simulators — a compounding multiply on the affected connections' rates and
 the shared link cap — so the chaos suite's chunk-for-chunk parity holds
 for every archetype ``transfer.chaos`` compiles down to them.
 
-Every sim engine — the reference package's three and the port's torch
-engine — consumes the same ``materialize_jobs`` scenario (identical
+Every sim engine — the port's ``ref``, ``soa`` and ``torch`` and the
+reference package's three — consumes the same ``materialize_jobs`` scenario (identical
 per-job RNG streams, VM/connection materialization and chunk->path
 assignment), so the equivalence tests can pin them together
 chunk-for-chunk. The event loops themselves are implemented
@@ -44,13 +44,7 @@ import numpy as np
 from repro_torch.core.plan import MulticastPlan, TransferPlan
 from repro_torch.core.topology import GBIT_PER_GB
 
-
-def conn_efficiency(n: int, limit: int = 64) -> float:
-    """Aggregate throughput fraction of the grid value achieved with n
-    connections per VM pair (paper Fig. 9a: sub-linear, ~plateau at 64)."""
-    if n <= 0:
-        return 0.0
-    return min(1.0, (n / limit) ** 0.9)
+from .flowsim import conn_efficiency
 
 # One tolerance for every time comparison of the multi-job event loops
 # (schedule due-ness, horizon cuts, final horizon classification). Both

@@ -2,10 +2,18 @@
 
 ``simulate`` has the reference dispatcher's signature (the ``SimConfig``
 knobs, or a ``config``, plus ``engine``) and one more argument,
-``device``. The port registers one engine, ``"torch"``: the fixed-shape
-device-resident loop of ``flowsim_torch``, chunk for chunk identical to
-the reference package's engines. ``device`` None runs it on the card; the
-tests pass ``device="cpu"``.
+``device``. The port registers three engines, chunk for chunk identical
+to one another and to the reference package's engines:
+
+  * ``"ref"`` — the object-per-connection oracle (``flowsim_ref``), numpy;
+  * ``"soa"`` — the vectorized numpy event loop (``flowsim``);
+  * ``"torch"`` — the fixed-shape device-resident loop of
+    ``flowsim_torch``, the default. ``device`` None runs it on the card;
+    the tests pass ``device="cpu"``.
+
+``device`` is ignored by the two numpy engines. Their entries carry names
+of the port's own (``simulate_multi_ref``, ``simulate_multi_soa``): the
+dispatcher is the one caller of each.
 """
 
 from __future__ import annotations
@@ -47,6 +55,14 @@ def simulate(
         from .flowsim_torch import simulate_multi_torch
 
         return simulate_multi_torch(jobs, faults, config=cfg, device=device)
+    elif cfg.engine == "soa":
+        from .flowsim import simulate_multi_soa
+
+        return simulate_multi_soa(jobs, faults, config=cfg)
+    elif cfg.engine == "ref":
+        from .flowsim_ref import simulate_multi_ref
+
+        return simulate_multi_ref(jobs, faults, config=cfg)
     names = ", ".join(ENGINE_NAMES)
     raise ValueError(  # unreachable: SimConfig validates eagerly
         f"unknown sim engine {cfg.engine!r}; registered engines: {names}"

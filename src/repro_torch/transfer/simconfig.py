@@ -17,9 +17,11 @@ from __future__ import annotations
 
 import dataclasses
 
-# The port's simulation engines:
+# The port's simulation engines, in oracle -> fast -> device order:
+#   "ref"   — object-per-connection oracle (flowsim_ref), numpy
+#   "soa"   — vectorized numpy event loop (flowsim)
 #   "torch" — fixed-shape device-resident loop (flowsim_torch)
-ENGINE_NAMES = ("torch",)
+ENGINE_NAMES = ("ref", "soa", "torch")
 
 
 @dataclasses.dataclass(frozen=True)

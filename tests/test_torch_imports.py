@@ -54,6 +54,23 @@ def test_model_path_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
 
+@pytest.mark.parametrize("module", [
+    "core/ron.py", "transfer/flowsim.py", "transfer/flowsim_ref.py",
+    "transfer/sim.py", "transfer/simconfig.py", "transfer/events.py",
+    "transfer/breaker.py", "transfer/chaos.py", "transfer/reports.py",
+    "transfer/executor.py", "transfer/gateway.py", "ckpt/replicate.py",
+    "obs/export.py", "obs/__main__.py", "launch/plan.py",
+    "data/placement.py", "configs/smollm_135m.py", "configs/zamba2_7b.py",
+    "configs/mixtral_8x22b.py", "configs/llama_32_vision_11b.py",
+    "configs/mamba2_1_3b.py", "configs/mistral_large_123b.py",
+    "configs/nemotron_4_340b.py", "configs/qwen2_7b.py",
+    "configs/qwen3_moe_30b_a3b.py", "configs/seamless_m4t_medium.py",
+])
+def test_transfer_plane_modules_are_checked(module):
+    """The transfer plane's modules are among the files checked below."""
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]

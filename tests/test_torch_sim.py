@@ -251,8 +251,8 @@ def test_no_device_means_the_card(top):
     jobs = convert.to_port_jobs(_unicast_jobs(top))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulate(jobs)
-    with pytest.raises(ValueError):
-        simulate(jobs, engine="soa", device="cpu")
+    with pytest.raises(ValueError):  # the reference's jax engine is not
+        simulate(jobs, engine="jax", device="cpu")  # one of the port's
 
 
 def test_materialized_layout_matches_reference(top):
