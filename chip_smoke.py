@@ -14,11 +14,18 @@ captured, their capture seconds and their replays; ``[sim_1e5]``
 brackets every block with CUDA events for the card's idle share. The
 transfer service follows, with the launch counts set to 0 again: the
 multi-job benchmark's service block at 10,240 chunks a job
-(``[service]``) and the chaos benchmark's 16 services
+(``[service]``) and 8 of the chaos benchmark's 16 services
 (``[service_chaos]``), each run by ``TransferService`` on the card (torch
 IPM, the card's sim) and on the CPU (torch IPM, the ``soa`` engine) and
-held equal run for run; then the sim's kernels against their plain
-versions at the service's shapes. The model path follows: the flash
+held equal run for run. The calibrated path follows, the counts set to 0
+again, each run the same way: the calibration benchmark's calibrated and
+stale services (``[calibrated]``), the probe-policy benchmark's race and
+epoch rolls (``[probe_race]``), the fleet benchmark's fleet of 24 jobs in
+1 MB chunks and its three isolated services (``[fleet_service]``), each
+checked against what its benchmark asserts, and the fleet's cohort
+admission (``[fleet_cohort]``); then the sim's kernels against their
+plain versions at every service phase's shapes. The model path follows:
+the flash
 attention kernels (bf16 on the tensor cores, f32 on the vector units) and
 the SSD scan kernel against their plain versions at Zamba2-7B's shapes
 and others, both flash kernels timed beside
@@ -48,6 +55,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -79,12 +87,38 @@ FLEET_ROUTES = (("aws:us-east-1", "aws:ap-southeast-2"),
 SERVICE_SRC2 = "gcp:us-central1"
 SERVICE_VOLUME_GB, SERVICE_GOAL_GBPS = 640.0, 4.0
 # [service_chaos]: benchmarks/chaos_bench.py:20-64 at its full (non-FAST)
-# size: seeds 0-7, each with and without the breaker, two 4 GB jobs in
+# size but for its seeds: seeds 0-3 of its 0-7 (the calibrated path below
+# needs the time), each with and without the breaker, two 4 GB jobs in
 # 16 MB chunks
 CHAOS_SRC, CHAOS_DST, CHAOS_SRC2 = ("aws:us-west-2", "aws:eu-central-1",
                                     "gcp:us-central1")
-CHAOS_SEEDS = tuple(range(8))
+CHAOS_SEEDS = (0, 1, 2, 3)
 CHAOS_VOLUME_GB = 4.0
+# the calibrated path, each phase one of the repo's benchmarks at its full
+# (non-FAST) size. [calibrated]: benchmarks/calibration_bench.py:29-70, one
+# 8 GB job at a 4 Gbps goal across a step-change incident (severity 0.08
+# at 6 s) on the stale plan's widest edge, calibrated and stale
+CAL_SRC, CAL_DST = "aws:us-west-2", "aws:eu-central-1"
+CAL_GOAL_GBPS, CAL_VOLUME_GB = 4.0, 8.0
+CAL_SEGMENTS = 150
+# [probe_race]: benchmarks/probe_policy_bench.py:142-188, the benchmark's
+# FAST arms (greedy and EVOI; the script's time limit) each racing three
+# 4 GB jobs (one per provider, its full volume) across staggered incidents
+# on a 3-probe budget; then :191-245, 8 GB on a belief that undersells the
+# source's egress 20x, with epoch rolls and without
+PROBE_CONTEXTS = (("aws:us-west-2", "aws:eu-central-1"),
+                  ("gcp:us-central1", "gcp:europe-west1"),
+                  ("azure:eastus", "azure:westeurope"))
+PROBE_POLICIES = ("greedy", "evoi")
+PROBE_VOLUME_GB, ROLL_VOLUME_GB = 4.0, 8.0
+# [fleet_service]: benchmarks/fleet_bench.py:32-135, three tenants of
+# eight jobs (2/4/3/6 GB cycled, 1 MB chunks, staggered 12 s), a 4-VM
+# quota each, an incident at 6 s on the shared route's busiest edge: the
+# fleet arm, then each tenant's isolated calibrated service (on the card;
+# the CPU twin runs the fleet arm alone, for the script's time limit)
+TENANT_SRC2 = "azure:canadacentral"
+TENANT_JOBS, TENANT_SIZES_GB = 8, (2.0, 4.0, 3.0, 6.0)
+TENANT_STAGGER_S, TENANT_CHUNK_MB = 12.0, 1.0
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and the vector (non-tensor)
 # peaks the kernels' float operations run at
 HBM_BYTES_S = 3.35e12
@@ -397,8 +431,9 @@ def hold_sim_kernels(label, su, dev, errs) -> int:
     """The sim's kernels against their plain versions at a materialized
     scenario's shapes: water-filling (f64 bitwise, f32 within 1e-5) over
     seeded live subsets with and without edges, and the ordered segment
-    sum (bitwise) at its per-(job, edge) map. Returns the water-filling
-    cases run."""
+    sum (bitwise) at its per-(job, edge) map. A solve past one block's
+    shared memory takes the device-memory variant, as the sim's would.
+    Returns the water-filling cases run."""
     from repro_torch.kernels.waterfill import ops, ref
 
     n = 0
@@ -407,7 +442,12 @@ def hold_sim_kernels(label, su, dev, errs) -> int:
             for precision, dtype in (("f64", torch.float64),
                                      ("f32", torch.float32)):
                 args = wf_inputs(su, dev, dtype, seed=seed, edges=edges)
-                got = ops.waterfill_rates(**args, precision=precision)
+                ne = 0 if args["ed_cap"] is None else args["ed_cap"].shape[0]
+                lanes = (wf_lanes(args, precision) if ops.lanes_in_device_memory(
+                    args["caps"].shape[0], args["eg_cap"].shape[0], ne,
+                    precision) else None)
+                got = ops.waterfill_rates(**args, precision=precision,
+                                          lanes=lanes)
                 want = ops.waterfill_rates(**to_cpu(args),
                                            precision=precision)
                 got = got.cpu()
@@ -808,27 +848,52 @@ def phase_sim_1e5(jobs):
 
 
 # --------------------------------------------------------------- service
+def plan_record(p) -> dict:
+    return {"status": p.solver_status, "N": np.asarray(p.N).tolist(),
+            "M": np.asarray(p.M).tolist(), "F": np.asarray(p.F).tolist()}
+
+
+def replan_record(r) -> dict:
+    """A ``ReplanRecord`` but its wall-clock ``latency_s``."""
+    return {**{f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+               if f.name not in ("latency_s", "plan")},
+            "plan": plan_record(r.plan)}
+
+
 def service_record(svc, rep) -> dict:
     """Everything a service run decides: ``ServiceReport.to_dict()``
     without its ``metrics`` section (the registry is process-wide), every
     ``ReplanRecord`` but its wall-clock ``latency_s``, the breaker's
     transitions, each job's final plan and the service's degraded and
-    gray views."""
-    def plan(p):
-        return {"status": p.solver_status, "N": np.asarray(p.N).tolist(),
-                "M": np.asarray(p.M).tolist(), "F": np.asarray(p.F).tolist()}
-
+    gray views. A calibrated run adds every probe round, drift event and
+    epoch roll, the belief-error trajectory, the segment boundaries and
+    the final belief; a fleet's ``to_dict()`` carries each tenant's
+    ``TenantReport.to_dict()`` and ``deferred_jobs``."""
     d = rep.to_dict()
     d.pop("metrics", None)
-    d["replan_records"] = [
-        {**{f.name: getattr(r, f.name) for f in dataclasses.fields(r)
-            if f.name not in ("latency_s", "plan")}, "plan": plan(r.plan)}
-        for r in rep.replans
-    ]
+    d["replan_records"] = [replan_record(r) for r in rep.replans]
     d["transitions"] = [dataclasses.asdict(t) for t in rep.quarantines]
-    d["final_plans"] = [plan(j.plan) for j in rep.jobs]
+    d["final_plans"] = [plan_record(j.plan) for j in rep.jobs]
     d["degraded_links"] = sorted(svc.degraded_links.items())
     d["gray"] = sorted(svc._gray.items())
+    if hasattr(rep, "probe_rounds"):
+        d["probe_round_records"] = [dataclasses.asdict(r)
+                                    for r in rep.probe_rounds]
+        d["drift_event_records"] = [dataclasses.asdict(e)
+                                    for e in rep.drift_events]
+        d["epoch_roll_records"] = [
+            {"t_s": r.t_s, "ratio": r.ratio,
+             "structure_builds": r.structure_builds,
+             "replans": [replan_record(x) for x in r.replans]}
+            for r in rep.epoch_rolls]
+        d["belief_error_trajectory"] = [
+            list(x) for x in rep.belief_error_trajectory]
+        d["boundaries"] = list(rep.boundaries)
+        bel = svc.belief
+        d["belief"] = {"mean": bel.mean.tolist(), "count": bel.count.tolist(),
+                       "m2": bel.m2.tolist(),
+                       "last_obs_t": bel.last_obs_t.tolist(),
+                       "version": bel.version, "epoch": bel.epoch}
     return d
 
 
@@ -853,6 +918,15 @@ def first_difference(a, b, path="report"):
     return None if a == b else f"{path}: {a!r} != {b!r}"
 
 
+def timed_run(svc, **kw) -> tuple:
+    """(service, its report, the run's wall seconds)."""
+    t0 = time.perf_counter()
+    rep = svc.run(**kw)
+    if svc.device != "cpu":
+        torch.cuda.synchronize()
+    return svc, rep, time.perf_counter() - t0
+
+
 def multijob_service(top, **svc_kw):
     """``benchmarks/multijob_bench.py``'s service block (:24-37, :63-66) at
     the [sim] phase's chunk count: three jobs of SERVICE_VOLUME_GB in
@@ -869,7 +943,7 @@ def multijob_service(top, **svc_kw):
     s, d = top.index(SRC), top.index(DST)
     faults = [LinkDegrade(t_s=2.0, src=s, dst=d, factor=0.5),
               VMFailure(t_s=4.0, job=0, region=s, count=1)]
-    return [(svc, svc.run(faults=faults, link_capacity_scale=0.8))]
+    return [timed_run(svc, faults=faults, link_capacity_scale=0.8)]
 
 
 def chaos_suite(top, **svc_kw):
@@ -900,18 +974,23 @@ def chaos_suite(top, **svc_kw):
                 svc.submit(TransferRequest(
                     name, src, CHAOS_DST, CHAOS_VOLUME_GB, 2.0,
                     arrival_s=arrival, deadline_s=40.0, retry_budget=budget))
-            out.append((svc, svc.run(faults=sc.events(2))))
+            out.append(timed_run(svc, faults=sc.events(2)))
     return out
 
 
-def phase_service(name, suite, top, counters) -> list:
+def phase_service(name, suite, top, counters, extra=None,
+                  cpu_suite=None) -> list:
     """One service configuration on the card (``backend="torch"``,
     ``engine="torch"``, the card by default) and on the CPU
     (``backend="torch"``, ``device="cpu"``, ``engine="soa"``), held equal
     run for run by ``service_record``. Every block of the card's sim
     iterations is bracketed by CUDA events, as in [sim_1e5]: the idle
     share is the rest of the card run's wall, so it counts the planner's
-    torch IPM on the card as idle. Returns the card run's reports."""
+    torch IPM on the card as idle. ``extra(reports)`` checks what the
+    configuration's benchmark asserts and returns more fields to print.
+    ``cpu_suite`` (default ``suite``) may run the first of the card's
+    runs alone on the CPU; the rest are then checked for lost chunks and
+    launches only. Returns the card run's reports."""
     from repro_torch.obs.metrics import REGISTRY
 
     before = {k: REGISTRY.counter(c).value for k, c in counters.items()}
@@ -926,14 +1005,16 @@ def phase_service(name, suite, top, counters) -> list:
                 for k, c in counters.items()}
     busy_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
     t0 = time.perf_counter()
-    cpu = suite(top, backend="torch", device="cpu", engine="soa")
+    cpu = (cpu_suite or suite)(top, backend="torch", device="cpu",
+                               engine="soa")
     cpu_wall = time.perf_counter() - t0
-    check(len(card) == len(cpu), f"{name}: run counts differ")
-    for i, ((cs, cr), (ps, pr)) in enumerate(zip(card, cpu)):
+    check(len(cpu) == len(card) if cpu_suite is None
+          else 0 < len(cpu) < len(card), f"{name}: run counts differ")
+    for i, ((cs, cr, _), (ps, pr, _)) in enumerate(zip(card, cpu)):
         diff = first_difference(service_record(cs, cr),
                                 service_record(ps, pr))
         check(diff is None, f"{name}: run {i}: card != CPU at {diff}")
-    reps = [r for _, r in card]
+    reps = [r for _, r, _ in card]
     jobs = [j for r in reps for j in r.jobs]
     lost = sum(j.lost_chunks for j in jobs)
     check(lost == 0, f"{name}: {lost} chunks lost")
@@ -942,11 +1023,13 @@ def phase_service(name, suite, top, counters) -> list:
     wf = sum(n for k, n in launches.items() if k.startswith("waterfill"))
     check(wf > 0 and launches["segsum_ordered_f64"] > 0,
           f"{name}: the sim's kernels were not launched: {launches}")
-    say(name, runs=len(reps), jobs=len(jobs),
+    say(name, runs=len(reps), cpu_runs=len(cpu), jobs=len(jobs),
         chunks=sum(j.n_chunks for j in jobs), wall_s=wall,
         cpu_wall_s=cpu_wall, segments=sum(r.segments for r in reps),
         sim_events=events, sim_events_per_s=events / wall,
-        cpu_sim_events_per_s=events / cpu_wall, replans=len(replans),
+        cpu_sim_events_per_s=sum(r.sim_events for _, r, _ in cpu) / cpu_wall,
+        run_walls_s=[w for _, _, w in card],
+        cpu_run_walls_s=[w for _, _, w in cpu], replans=len(replans),
         replan_latency_ms_median=float(np.median(
             [x.latency_s for x in replans])) * 1e3 if replans else None,
         graph_captures=graphs["graph_captures"],
@@ -958,7 +1041,8 @@ def phase_service(name, suite, top, counters) -> list:
         not_compared=["ReplanRecord.latency_s", "to_dict()['metrics']"],
         done=sum(j.status == "done" for j in jobs),
         slo_violations=sum(j.deadline_met is False for j in jobs),
-        quarantines=sum(len(r.quarantines) for r in reps), lost_chunks=lost)
+        quarantines=sum(len(r.quarantines) for r in reps), lost_chunks=lost,
+        **(extra(reps) if extra else {}))
     return reps
 
 
@@ -970,9 +1054,310 @@ def service_path(top, counters) -> dict:
                                            counters)}
 
 
+# --------------------------------------------------------- calibrated path
+def widest_edge(top, src, dst, volume_gb=4.0) -> tuple[int, int]:
+    """The widest edge of the 4 Gbps cost-min plan of a ``volume_gb``
+    transfer on the route (the numpy planner): where the benchmarks'
+    incident lands."""
+    from repro_torch.core import Planner, PlanSpec
+
+    plan = Planner(top, max_relays=6).plan(PlanSpec(
+        objective="cost_min", src=src, dst=dst, tput_goal_gbps=4.0,
+        volume_gb=volume_gb))
+    a, b = np.unravel_index(int(np.argmax(plan.F)), plan.F.shape)
+    return int(a), int(b)
+
+
+def achieved_gbps(rep) -> float:
+    return sum(j.delivered_gb for j in rep.jobs) * 8.0 / max(rep.time_s,
+                                                             1e-9)
+
+
+def replan_builds(rep) -> int:
+    return sum(r.structure_builds for j in rep.jobs for r in j.replans)
+
+
+def probe_fields(reps) -> dict:
+    """What the calibration plane spent and found, over a phase's runs."""
+    return dict(
+        probe_rounds=sum(len(r.probe_rounds) for r in reps),
+        probe_cost_usd=sum(r.probe_cost_usd for r in reps),
+        probe_seconds=sum(r.probe_seconds for r in reps),
+        drift_events=sum(len(r.drift_events) for r in reps),
+        epoch_rolls=sum(len(r.epoch_rolls) for r in reps),
+        epoch_roll_builds=sum(r.epoch_roll_builds for r in reps),
+        replan_struct_builds=sum(replan_builds(r) for r in reps))
+
+
+def calibrated_suite(top, **svc_kw):
+    """``benchmarks/calibration_bench.py``'s two arms (:29-70) at its full
+    size: the calibrated service, then the stale baseline."""
+    from repro_torch.calibrate import (CalibratedTransferService,
+                                       DriftModel, Incident)
+    from repro_torch.transfer import TransferRequest
+
+    a, b = widest_edge(top, CAL_SRC, CAL_DST)
+    drift = DriftModel(top, seed=0, drift_sigma=0.10, diurnal_amp=0.0,
+                       incidents=[Incident(src=a, dst=b, t_start_s=6.0,
+                                           duration_s=1e9, severity=0.08)])
+    out = []
+    for calibrate in (True, False):
+        svc = CalibratedTransferService(
+            drift, max_relays=6, calibrate=calibrate, check_interval_s=4.0,
+            max_segments=CAL_SEGMENTS, **svc_kw)
+        svc.submit(TransferRequest("bench", CAL_SRC, CAL_DST, CAL_VOLUME_GB,
+                                   CAL_GOAL_GBPS))
+        out.append(timed_run(svc))
+    return out
+
+
+def calibrated_extra(reps) -> dict:
+    cal, stale = reps
+    check(cal.drift_events, "[calibrated]: the incident went undetected")
+    check(replan_builds(cal) == 0,
+          "[calibrated]: a robust re-plan re-assembled an LP structure")
+    ratio = achieved_gbps(cal) / max(achieved_gbps(stale), 1e-9)
+    check(ratio >= 1.5, f"[calibrated]: calibrated/stale {ratio} < 1.5")
+    return dict(**probe_fields([cal]), replans_calibrated=len(cal.replans),
+                achieved_gbps={"calibrated": achieved_gbps(cal),
+                               "stale": achieved_gbps(stale)},
+                achieved_ratio_vs_stale=ratio)
+
+
+def probe_race_suite(top, **svc_kw):
+    """``benchmarks/probe_policy_bench.py``'s service race (:142-188),
+    each of PROBE_POLICIES at full volume, then its epoch-roll scenario
+    (:191-245), rolls on (2) and off (0)."""
+    from repro_torch.calibrate import (BeliefGrid, CalibratedTransferService,
+                                       Calibrator, DriftModel, Incident,
+                                       ProbeBudget, make_policy)
+    from repro_torch.core import Planner
+    from repro_torch.transfer import TransferRequest
+
+    incidents = []
+    for i, (src, dst) in enumerate(PROBE_CONTEXTS):
+        a, b = widest_edge(top, src, dst, volume_gb=8.0)
+        incidents.append(Incident(src=a, dst=b, t_start_s=5.0 + 6.0 * i,
+                                  duration_s=1e9, severity=0.10 + 0.05 * i))
+    drift = DriftModel(top, seed=3, drift_sigma=0.20, diurnal_amp=0.0,
+                       incidents=incidents)
+
+    def prewarmed(links):
+        bel, truth0 = BeliefGrid(top), drift.tput_at(0.0)
+        for a, b in links:
+            bel.observe_adaptive(a, b, float(truth0[a, b]), weight=4.0,
+                                 t_s=0.0)
+        return bel
+
+    candidates = Calibrator(prewarmed([])).candidate_links(
+        Planner(top, max_relays=6), PROBE_CONTEXTS)
+    out = []
+    for pol in PROBE_POLICIES:
+        bel = prewarmed(candidates)
+        svc = CalibratedTransferService(
+            drift, belief=bel, calibrator=Calibrator(
+                bel, policy=make_policy(pol, seed=7),
+                budget=ProbeBudget(usd_per_round=0.9, seconds_per_round=20.0,
+                                   max_probes_per_round=3)),
+            max_relays=6, check_interval_s=4.0, max_segments=150, **svc_kw)
+        for i, (src, dst) in enumerate(PROBE_CONTEXTS):
+            svc.submit(TransferRequest(f"job{i}", src, dst, PROBE_VOLUME_GB,
+                                       4.0))
+        out.append(timed_run(svc))
+    src, dst = PROBE_CONTEXTS[0]
+    s = top.index(src)
+    roll_drift = DriftModel(top, seed=0, drift_sigma=0.02, diurnal_amp=0.0)
+    for max_rolls in (2, 0):
+        bel = BeliefGrid(top)
+        for b in range(top.num_regions):
+            if b != s and top.tput[s, b] > 0:
+                bel.reset_link(s, b, 0.05 * top.tput[s, b])
+        svc = CalibratedTransferService(
+            roll_drift, belief=bel, max_relays=6, check_interval_s=4.0,
+            policy="round_robin", max_epoch_rolls=max_rolls, max_segments=150,
+            **svc_kw)
+        svc.submit(TransferRequest("roll", src, dst, ROLL_VOLUME_GB, 4.0))
+        out.append(timed_run(svc))
+    return out
+
+
+def probe_race_extra(reps) -> dict:
+    race, (rolled, capped) = reps[:len(PROBE_POLICIES)], reps[-2:]
+    for pol, rep in zip(PROBE_POLICIES, race):
+        check(replan_builds(rep) == 0,
+              f"[probe_race] {pol}: a drift re-plan re-assembled an LP")
+    check(1 <= len(rolled.epoch_rolls) <= 2 and not capped.epoch_rolls,
+          f"[probe_race]: {len(rolled.epoch_rolls)} epoch rolls")
+    check(all(any(abs(r.t_s - b) < 1e-9 for b in rolled.boundaries)
+              for r in rolled.epoch_rolls),
+          "[probe_race]: an epoch roll fired mid-segment")
+    gain = achieved_gbps(rolled) / max(achieved_gbps(capped), 1e-9)
+    check(gain >= 1.02, f"[probe_race]: the epoch roll did not pay: {gain}")
+    tput = {p: achieved_gbps(r) for p, r in zip(PROBE_POLICIES, race)}
+    return dict(**probe_fields(reps), achieved_gbps=tput,
+                evoi_vs_greedy_tput=tput["evoi"] / max(tput["greedy"], 1e-9),
+                epoch_roll_achieved_gbps=achieved_gbps(rolled),
+                noroll_achieved_gbps=achieved_gbps(capped),
+                epoch_roll_gain_x=gain,
+                epoch_roll_struct_builds=rolled.epoch_roll_builds)
+
+
+def fleet_world(top):
+    """``benchmarks/fleet_bench.py``'s world (:32-88) at its full size:
+    the drift model's factory, the three tenants and each tenant's job
+    requests (as keyword dicts: admission rewrites a request's goal and
+    arrival)."""
+    from repro_torch.calibrate import DriftModel, Incident
+    from repro_torch.transfer import TenantSpec
+
+    a, b = widest_edge(top, CAL_SRC, CAL_DST)
+
+    def make_drift():
+        return DriftModel(top, seed=0, drift_sigma=0.10, diurnal_amp=0.0,
+                          incidents=[Incident(src=a, dst=b, t_start_s=6.0,
+                                              duration_s=1e9, severity=0.08)])
+
+    tenants = [TenantSpec("analytics", weight=1.0, vm_quota=4),
+               TenantSpec("backup", weight=1.0, vm_quota=4),
+               TenantSpec("ml-sync", weight=2.0, slo_class="deadline",
+                          vm_quota=4)]
+    slack_s = 30.0 + 15.0 * (TENANT_JOBS - 2)
+    jobs = {}
+    for ti, spec in enumerate(tenants):
+        src = TENANT_SRC2 if spec.name == "backup" else CAL_SRC
+        jobs[spec.name] = []
+        for j in range(TENANT_JOBS):
+            vol = TENANT_SIZES_GB[(ti + j) % len(TENANT_SIZES_GB)]
+            jobs[spec.name].append(dict(
+                name=f"{spec.name}-{j}", src=src, dst=CAL_DST, volume_gb=vol,
+                tput_goal_gbps=2.0, chunk_mb=TENANT_CHUNK_MB,
+                arrival_s=j * TENANT_STAGGER_S,
+                deadline_s=(vol * 8.0 / 2.0 + slack_s
+                            if spec.slo_class == "deadline" else None)))
+    return make_drift, tenants, jobs
+
+
+def fleet_controller(top, make_drift, tenants, jobs, **kw):
+    from repro_torch.transfer import FleetController, TransferRequest
+
+    fleet = FleetController(make_drift(), tenants=tenants, **kw)
+    for spec in tenants:
+        for j in jobs[spec.name]:
+            fleet.submit(TransferRequest(**j), tenant=spec.name)
+    return fleet
+
+
+def fleet_suite(top, isolated=True, **svc_kw):
+    """``benchmarks/fleet_bench.py``'s arms (:90-135): the fleet, then
+    (``isolated``) each tenant's isolated calibrated service at its
+    quota."""
+    from repro_torch.calibrate import CalibratedTransferService
+    from repro_torch.transfer import TransferRequest
+
+    make_drift, tenants, jobs = fleet_world(top)
+    kw = dict(max_relays=6, check_interval_s=4.0, max_segments=150, **svc_kw)
+    fleet = fleet_controller(top, make_drift, tenants, jobs,
+                             probe_dedup_window_s=3.0, **kw)
+    out = [timed_run(fleet)]
+    for spec in tenants if isolated else ():
+        svc = CalibratedTransferService(make_drift(), vm_budget=spec.vm_quota,
+                                        **kw)
+        for j in jobs[spec.name]:
+            svc.submit(TransferRequest(**j))
+        out.append(timed_run(svc))
+    return out
+
+
+def fleet_extra(reps) -> dict:
+    """``benchmarks/fleet_bench.py``'s metrics (:136-162) and asserts."""
+    fleet, iso = reps[0], reps[1:]
+
+    def latencies(jobs):
+        return [j.delivered_gb * 8.0 / max(j.realized_tput_gbps, 1e-9)
+                for j in jobs if j.delivered_gb > 0]
+
+    def p99(xs):
+        return float(np.percentile(xs, 99)) if xs else 0.0
+
+    iso_gb = sum(j.delivered_gb for r in iso for j in r.jobs)
+    fleet_gb = sum(j.delivered_gb for j in fleet.jobs)
+    iso_tput = iso_gb * 8.0 / max(max(r.time_s for r in iso), 1e-9)
+    iso_lat = [x for r in iso for x in latencies(r.jobs)]
+    check(fleet_gb >= iso_gb - 1e-6,
+          f"[fleet_service]: fleet delivered {fleet_gb} < isolated {iso_gb}")
+    check(replan_builds(fleet) == 0,
+          "[fleet_service]: a fleet re-plan re-assembled an LP structure")
+    return dict(
+        **probe_fields([fleet]),
+        agg_tput_ratio_vs_isolated=achieved_gbps(fleet) / max(iso_tput,
+                                                              1e-9),
+        p99_job_latency_ratio=p99(latencies(fleet.jobs)) / max(p99(iso_lat),
+                                                               1e-9),
+        probe_cost_per_tenant_ratio=fleet.probe_cost_usd / max(
+            sum(r.probe_cost_usd for r in iso), 1e-9),
+        fleet_agg_gbps=achieved_gbps(fleet), isolated_agg_gbps=iso_tput,
+        deferred_jobs=fleet.deferred_jobs,
+        deadline_misses=sum(t.deadline_misses for t in fleet.tenants),
+        quota_borrows=sum(t.quota_borrows for t in fleet.tenants),
+        fleet_time_s=fleet.time_s, isolated_time_s=[r.time_s for r in iso])
+
+
+def phase_fleet_cohort(top) -> None:
+    """The fleet's batched cohort admission (``benchmarks/fleet_bench.py``
+    :164-182) on the card's torch IPM and on the CPU's: the 24 admitted
+    states' plans equal, and no more LP structure builds than routes."""
+    from repro_torch.core import milp
+
+    make_drift, tenants, jobs = fleet_world(top)
+    routes = {(j["src"], j["dst"]) for t in tenants for j in jobs[t.name]}
+    out = {}
+    for side, kw in (("card", {}), ("cpu", {"device": "cpu"})):
+        fleet = fleet_controller(top, make_drift, tenants, jobs,
+                                 backend="torch", max_relays=6,
+                                 check_interval_s=4.0, max_segments=150, **kw)
+        b0 = milp.N_STRUCT_BUILDS
+        t0 = time.perf_counter()
+        states = fleet._admit_queue()
+        if side == "card":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        builds = milp.N_STRUCT_BUILDS - b0
+        check(builds <= len(routes) and all(
+            st.status == "planned" for st in states),
+            f"[fleet_cohort] {side}: {builds} builds for {len(routes)} routes")
+        out[side] = (states, builds, wall)
+    card, cpu = out["card"][0], out["cpu"][0]
+    diff = first_difference(
+        [(st.req.name, st.req.tput_goal_gbps, plan_record(st.plan))
+         for st in card],
+        [(st.req.name, st.req.tput_goal_gbps, plan_record(st.plan))
+         for st in cpu])
+    check(diff is None, f"[fleet_cohort]: card != CPU at {diff}")
+    say("fleet_cohort", states=len(card), routes=len(routes),
+        struct_builds=out["card"][1], admit_s=out["card"][2],
+        cpu_admit_s=out["cpu"][2], equal_cpu=True)
+
+
+def calibrated_path(top, counters) -> dict:
+    """The calibration plane and the fleet controller on the card: each
+    configuration's reports."""
+    reps = {
+        "calibrated": phase_service("calibrated", calibrated_suite, top,
+                                    counters, calibrated_extra),
+        "probe_race": phase_service("probe_race", probe_race_suite, top,
+                                    counters, probe_race_extra),
+        "fleet_service": phase_service(
+            "fleet_service", fleet_suite, top, counters, fleet_extra,
+            cpu_suite=functools.partial(fleet_suite, isolated=False)),
+    }
+    phase_fleet_cohort(top)
+    return reps
+
+
 def phase_service_kernels(reps: dict, dev, errs) -> None:
     """The sim's kernels against their plain versions again, at the
     service's shapes: each configuration's final plans at full volume."""
+    from repro_torch.kernels.waterfill import ops
     from repro_torch.transfer import TransferJob
     from repro_torch.transfer.events import materialize_jobs
 
@@ -985,7 +1370,10 @@ def phase_service_kernels(reps: dict, dev, errs) -> None:
         su = materialize_jobs(jobs)
         shapes[label] = {"conns": int(su.conn_job.shape[0]),
                          "vms": int(su.vm_eg_cap.shape[0]),
-                         "edges": len(su.edges_used)}
+                         "edges": len(su.edges_used),
+                         "device_memory": ops.lanes_in_device_memory(
+                             -(-su.conn_job.shape[0] // 8) * 8,
+                             su.vm_eg_cap.shape[0], len(su.edges_used))}
         shapes[label]["cases"] = hold_sim_kernels(label, su, dev, errs)
     say("service_kernels", shapes=shapes, f64_bitwise=True,
         segsum_bitwise=True, max_abs_err=errs)
@@ -2212,16 +2600,29 @@ def main(argv=None) -> int:
     service_reps = service_path(top, counters)
     service_launches = {k: int(REGISTRY.counter(c).value)
                         for k, c in counters.items()}
-    phase_service_kernels(service_reps, dev, errs)
+
+    # ---- the calibrated path: every launch count starts at 0 here
+    for c in counters.values():
+        REGISTRY.counter(c).reset()
+    cal_reps = calibrated_path(top, counters)
+    cal_launches = {k: int(REGISTRY.counter(c).value)
+                    for k, c in counters.items()}
+    check(cal_launches["segsum_ordered_f64"] > 0 and sum(
+        n for k, n in cal_launches.items() if k.startswith("waterfill")) > 0,
+        f"the sim's kernels were not launched on the calibrated path: "
+        f"{cal_launches}")
+    phase_service_kernels({**service_reps, **cal_reps}, dev, errs)
 
     phase_profile(big)
     sim_shapes = {"sim": materialize_jobs(jobs),
                   "sim_1e5": materialize_jobs(big), "fleet": fleet_su}
     kernels, shapes = phase_kernels(sim_shapes, dev, {
-        k: n + service_launches[k] for k, n in launches.items()}, errs)
+        k: n + service_launches[k] + cal_launches[k]
+        for k, n in launches.items()}, errs)
     for k in kernels:
         k["launches_by_path"] = {"sim": launches[k["name"]],
-                                 "service": service_launches[k["name"]]}
+                                 "service": service_launches[k["name"]],
+                                 "calibrated": cal_launches[k["name"]]}
     kernels += model_path(errs)
     kernels += train_path(errs)
     line = {"kernels": kernels}

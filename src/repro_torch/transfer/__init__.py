@@ -1,11 +1,10 @@
 """The port's transfer plane: the sim engines and their dispatcher, the
-executor with its breaker, chaos scenarios and reports, and the gateway
-that moves real bytes (copies of the reference package's ``transfer/``,
-plus the device-resident ``torch`` sim engine).
+executor with its breaker, chaos scenarios and reports, the fleet
+controller, and the gateway that moves real bytes (copies of the
+reference package's ``transfer/``, plus the device-resident ``torch`` sim
+engine).
 
-The fleet controller (``FleetController``, ``FleetReport``,
-``TenantReport``, ``TenantSpec``) is not ported yet, and the reference's
-deprecated per-engine shims ``simulate_multi`` and
+The reference's deprecated per-engine shims ``simulate_multi`` and
 ``simulate_multi_reference`` are not copied: ``simulate(engine=...)`` is
 the one entry to every engine.
 """
@@ -61,6 +60,13 @@ from .gateway import (  # noqa: F401
     transfer_objects_multicast,
 )
 
+# The fleet controller subclasses the calibration plane's service, which
+# itself imports this package's executor — importing it lazily (PEP 562)
+# keeps `import repro_torch.calibrate` from hitting a half-initialized
+# module.
+_FLEET_NAMES = ("FleetController", "FleetReport", "TenantReport",
+                "TenantSpec")
+
 __all__ = [
     "BackoffLadder",
     "BlobStore",
@@ -73,6 +79,8 @@ __all__ = [
     "ExecutionReport",
     "FaultInjector",
     "FlappingLink",
+    "FleetController",
+    "FleetReport",
     "GatewayReport",
     "GrayFailure",
     "GrayLink",
@@ -91,6 +99,8 @@ __all__ = [
     "ServiceReport",
     "SimConfig",
     "SimResult",
+    "TenantReport",
+    "TenantSpec",
     "TransferJob",
     "TransferRequest",
     "TransferService",
@@ -107,3 +117,11 @@ __all__ = [
     "transfer_objects",
     "transfer_objects_multicast",
 ]
+
+
+def __getattr__(name):
+    if name in _FLEET_NAMES:
+        from . import fleet
+
+        return getattr(fleet, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

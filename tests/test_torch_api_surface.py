@@ -1,9 +1,10 @@
 """The port's public names are the reference package's.
 
-``__all__`` of ``transfer``, ``core``, ``obs`` and ``ckpt`` equals the
-reference's (``ckpt`` has no ``__all__`` there: its public names are what
-its ``__init__`` imports). The only names left out are listed below, so
-that the slice that ports them removes them from the list.
+``__all__`` of ``transfer``, ``calibrate``, ``core``, ``obs`` and ``ckpt``
+equals the reference's (``ckpt`` has no ``__all__`` there: its public
+names are what its ``__init__`` imports). The only names left out are
+listed below, so that the slice that ports them removes them from the
+list.
 """
 
 from __future__ import annotations
@@ -15,13 +16,12 @@ import types
 
 import pytest
 
-# the fleet controller (transfer/fleet.py) is not ported yet
-NOT_PORTED_YET = {"transfer": {"FleetController", "FleetReport",
-                               "TenantReport", "TenantSpec"}}
+# every module of the reference's transfer plane is ported
+NOT_PORTED_YET: dict[str, set] = {}
 # the reference's deprecated per-engine shims: the port reaches every
 # engine through simulate(engine=...) and does not copy them
 NOT_COPIED = {"transfer": {"simulate_multi", "simulate_multi_reference"}}
-PACKAGES = ("transfer", "core", "obs", "ckpt")
+PACKAGES = ("transfer", "calibrate", "core", "obs", "ckpt")
 
 
 def _public(mod) -> set:
@@ -52,7 +52,7 @@ def test_left_out_names_are_absent():
     import repro_torch.transfer as t
     from repro_torch.transfer import flowsim, flowsim_ref
 
-    for name in NOT_PORTED_YET["transfer"] | NOT_COPIED["transfer"]:
+    for name in NOT_PORTED_YET.get("transfer", set()) | NOT_COPIED["transfer"]:
         assert not hasattr(t, name), name
     assert not hasattr(flowsim, "simulate_multi")
     assert not hasattr(flowsim_ref, "simulate_multi_reference")
@@ -76,6 +76,58 @@ def test_dataclass_fields_equal_reference(cls):
         assert port.SimConfig().engine == "torch"
         return
     assert fields(getattr(port, cls)) == fields(getattr(ref, cls))
+
+
+@pytest.mark.parametrize("qualname", [
+    "calibrate.Incident", "calibrate.BeliefSnapshot", "calibrate.ProbeBudget",
+    "calibrate.ProbeRecord", "calibrate.ProbeRound",
+    "calibrate.PolicyContext", "calibrate.DriftEvent", "calibrate.EpochRoll",
+    "calibrate.CalibratedServiceReport", "transfer.TenantSpec",
+    "transfer.TenantReport", "transfer.FleetReport",
+])
+def test_calibration_dataclass_fields_equal_reference(qualname):
+    pkg, cls = qualname.split(".")
+    ref = getattr(importlib.import_module(f"repro.{pkg}"), cls)
+    port = getattr(importlib.import_module(f"repro_torch.{pkg}"), cls)
+
+    def fields(c):
+        return [(f.name, f.default, str(f.default_factory))
+                for f in dataclasses.fields(c)]
+
+    assert fields(port) == fields(ref)
+
+
+def test_fleet_names_resolve_lazily():
+    """The four fleet names come from ``transfer/fleet.py`` on first use,
+    as the reference's do (PEP 562)."""
+    import repro_torch.transfer as t
+    from repro_torch.transfer import fleet
+
+    for name in ("FleetController", "FleetReport", "TenantReport",
+                 "TenantSpec"):
+        assert name not in vars(t) and getattr(t, name) is getattr(fleet, name)
+    with pytest.raises(AttributeError, match="no attribute"):
+        t.NoSuchName  # noqa: B018
+
+
+@pytest.mark.parametrize("qualname", [
+    "calibrate.DriftModel", "calibrate.BeliefGrid", "calibrate.Calibrator",
+    "calibrate.GreedyVoIPolicy", "calibrate.RoundRobinPolicy",
+    "calibrate.EpsilonGreedyPolicy", "calibrate.BayesianEVOIPolicy",
+    "calibrate.make_policy", "calibrate.CalibratedTransferService",
+    "calibrate.CalibratedTransferService.run", "transfer.FleetController",
+    "transfer.FleetController.submit", "transfer.FleetController.run",
+])
+def test_calibration_signatures_equal_reference(qualname):
+    pkg, *path = qualname.split(".")
+
+    def get(root):
+        obj = importlib.import_module(f"{root}.{pkg}")
+        for part in path:
+            obj = getattr(obj, part)
+        return inspect.signature(obj)
+
+    assert str(get("repro_torch")) == str(get("repro"))
 
 
 def test_chaos_scenario_signature_equals_reference():

@@ -19,12 +19,13 @@ The port runs it on ``engine="soa"`` and on ``engine="torch"`` (both on
     throughput 2.0 against 1.9999999999999998); every integer, string and
     flag is held equal and every float within ``TORCH_JAX_RTOL``.
 
-What is held: ``ServiceReport.to_dict()`` without its ``metrics`` section
-(the registries are process-wide and earlier tests leave counts in them),
-every job's report included; each ``ReplanRecord`` but its wall-clock
-``latency_s`` (its plan's N, M, F and status too); the breaker's
-transitions; each job's final plan; and the service's degraded and gray
-views.
+What is held is ``chip_smoke.service_record``, the record the chip script
+holds the card against the CPU with: ``ServiceReport.to_dict()`` without
+its ``metrics`` section (the registries are process-wide and earlier
+tests leave counts in them), every job's report included; each
+``ReplanRecord`` but its wall-clock ``latency_s`` (its plan's N, M, F and
+status too); the breaker's transitions; each job's final plan; and the
+service's degraded and gray views.
 """
 
 from __future__ import annotations
@@ -34,14 +35,17 @@ import functools
 import math
 import sys
 import types
+from pathlib import Path
 
-import numpy as np
 import pytest
 
 import repro.core as ref_core
 import repro.transfer as ref_transfer
 import repro_torch.core as port_core
 import repro_torch.transfer as port_transfer
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import service_record  # noqa: E402
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "gcp:us-central1"
@@ -289,30 +293,6 @@ SCENARIOS = {
 
 
 # ------------------------------------------------------------ comparison
-def _plan_record(plan) -> dict:
-    return {"status": plan.solver_status,
-            "N": np.asarray(plan.N).tolist(), "M": np.asarray(plan.M).tolist(),
-            "F": np.asarray(plan.F).tolist()}
-
-
-def service_record(svc, rep) -> dict:
-    """Everything a run decides, but wall clock and the process-wide
-    metrics registry."""
-    d = rep.to_dict()
-    d.pop("metrics", None)
-    d["replan_records"] = [
-        {**{f.name: getattr(r, f.name) for f in dataclasses.fields(r)
-            if f.name not in ("latency_s", "plan")},
-         "plan": _plan_record(r.plan)}
-        for r in rep.replans
-    ]
-    d["transitions"] = [dataclasses.asdict(t) for t in rep.quarantines]
-    d["final_plans"] = [_plan_record(j.plan) for j in rep.jobs]
-    d["degraded_links"] = sorted(svc.degraded_links.items())
-    d["gray"] = sorted(svc._gray.items())
-    return d
-
-
 def assert_same(got, want, rtol=0.0, path="report"):
     """Equal where ``rtol`` is 0; else equal but for floats, which agree
     within ``rtol`` (relative, and absolute near zero)."""

@@ -65,6 +65,9 @@ def test_model_path_modules_are_checked(module):
     "configs/mamba2_1_3b.py", "configs/mistral_large_123b.py",
     "configs/nemotron_4_340b.py", "configs/qwen2_7b.py",
     "configs/qwen3_moe_30b_a3b.py", "configs/seamless_m4t_medium.py",
+    "calibrate/__init__.py", "calibrate/drift.py", "calibrate/belief.py",
+    "calibrate/policies.py", "calibrate/calibrator.py",
+    "calibrate/service.py", "transfer/fleet.py",
 ])
 def test_transfer_plane_modules_are_checked(module):
     """The transfer plane's modules are among the files checked below."""
