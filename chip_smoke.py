@@ -34,6 +34,15 @@ depth (6.75e9 f32 parameters from a seed): served through
 ``repro_torch.launch.serve`` (a 4 x 4096 prefill, then greedy decode),
 its ``forward`` with the kernels
 against the plain path, and a reduced copy on the card against the CPU.
+The rest of the model zoo follows, each serving phase with the launch
+counts set to 0 just before it and profiled after it: ``qwen3-moe-30b-a3b``
+at full width cut to 12 of its 48 layers (8.10e9 f32 parameters) through
+``launch.serve.generate`` with its routing recorded (the share of
+assignments that capacity dropped, the expert load), then
+``llama-3.2-vision-11b`` and ``seamless-m4t-medium`` at full size through
+``launch.serve.main`` (vision tokens and audio frames from its seed);
+then the four zoo families reduced, and Qwen3-MoE at full width and two
+layers, each on the card against the CPU, MoE routing compared first.
 The training path comes last: the int8 quantize and dequantize kernels
 bit for bit against their plain versions at every gradient leaf of
 ``smollm-135m`` and at ragged, zero, tie, bf16 and NaN inputs; then
@@ -152,6 +161,15 @@ SSD_CASES = {
     "ragged": dict(b=2, s=1000, h=112, p=64, n=64, q=256),
     "p32_n128": dict(b=1, s=2048, h=16, p=32, n=128, q=256),
 }
+# the shapes the zoo's serving phases give the flash kernel: qwen3-moe-30b-a3b
+# and llama-3.2-vision-11b (GQA 32:4 and 32:8 at D 128) at 4 x 4096,
+# seamless-m4t-medium's decoder (16 heads of 64) at 4 x 1024; held against
+# the plain version in [flash], not timed
+ZOO_FLASH_CASES = {
+    "qwen3_moe": dict(b=4, s=4096, h=32, kv=4, d=128, window=None),
+    "llama_vision": dict(b=4, s=4096, h=32, kv=8, d=128, window=None),
+    "seamless": dict(b=4, s=1024, h=16, kv=16, d=64, window=None),
+}
 # the tolerances of tests/test_kernels.py:45,84
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
@@ -171,6 +189,22 @@ MODEL_B, MODEL_S = 4, 4096
 FORWARD_F32_RTOL = 1e-2
 # [model_cpu]: f32 card (kernels, cuBLAS f32) against CPU (plain versions)
 MODEL_CPU_TOL = 1e-3
+# [serve_moe]: qwen3-moe-30b-a3b at full width cut to 12 of its 48 layers
+# (the 48 are 30.5e9 f32 parameters, 122 GB); B 4 x S 4096, 31 greedy steps
+MOE_ARCH, MOE_LAYERS, MOE_PARAMS = "qwen3-moe-30b-a3b", 12, 8_099_776_512
+ZOO_B, ZOO_S, ZOO_DECODE = 4, 4096, 32
+VLM_ARGS = ["--arch", "llama-3.2-vision-11b", "--full", "--batch", "4",
+            "--prompt-len", "4096", "--decode", "32"]
+ENCDEC_ARGS = ["--arch", "seamless-m4t-medium", "--full", "--batch", "4",
+               "--prompt-len", "1024", "--decode", "32"]
+# [moe_cpu]: qwen3-moe at full width, 2 layers, f32, card against CPU
+MOE_CPU_LAYERS, MOE_CPU_B, MOE_CPU_S = 2, 2, 256
+# a token whose routing differs between card and CPU must sit at a
+# near-tie: its k-th and (k+1)-th router probabilities within this,
+# relative; such tokens leave the output checks, and may not pass 1%
+NEAR_TIE, MAX_TIE_SHARE = 1e-5, 0.01
+ZOO_ARCHS = ("qwen3-moe-30b-a3b", "mixtral-8x22b", "llama-3.2-vision-11b",
+             "seamless-m4t-medium")
 QUANT_SOURCE = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
 QUANT_TPU = "src/repro/kernels/quantize/quantize.py:19"
 DEQUANT_TPU = "src/repro/kernels/quantize/quantize.py:28"
@@ -1623,13 +1657,14 @@ def ssd_bound(c: dict, dtype) -> tuple[float, str]:
 
 def phase_flash(errs):
     """The flash kernels against their plain version on the card, f32 and
-    bf16, at every FLASH_CASES shape: ``flash_attention`` as the model
+    bf16, at every FLASH_CASES and ZOO_FLASH_CASES shape:
+    ``flash_attention`` as the model
     calls it (bf16 on the tensor-core kernel, f32 on the vector-unit
     one), and the vector-unit kernel on the bf16 inputs too."""
     from repro_torch.kernels.flash_attention import ops
 
     out = {}
-    for label, c in FLASH_CASES.items():
+    for label, c in {**FLASH_CASES, **ZOO_FLASH_CASES}.items():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(c, dtype, seed=1)
             want = ops.flash_attention_plain(q, k, v, window=c["window"])
@@ -1887,16 +1922,20 @@ def _busy(dev, lo=float("-inf"), hi=float("inf")):
     return sum(e - s for _, s, e in win), {k: round(v, 1) for k, v in top}
 
 
-def phase_serve_profile(params, batch, serve_numbers: dict):
-    """Where the serving time goes: one 4 x 4096 prefill and four greedy
-    steps under torch.profiler, the device time of each by kernel, and
-    each idle share against the unprofiled [serve] wall times; the
-    prefill's also against a warm unprofiled prefill."""
+def phase_serve_profile(params, batch, serve_numbers: dict, cfg=None,
+                        name: str = "serve_profile"):
+    """Where the serving time goes: one prefill of ``batch`` and four
+    greedy steps under torch.profiler, the device time of each by kernel,
+    and each idle share against the unprofiled serving run's wall times
+    (``serve_numbers``); the prefill's also against a warm unprofiled
+    prefill. ``cfg`` is full zamba2-7b unless given."""
     from repro_torch.launch.serve import RULES
     from repro_torch.serve import make_prefill_step, make_serve_step
 
-    cfg = zamba_full(True)
-    prefill_step = make_prefill_step(cfg, RULES, t_max=MODEL_S + 8)
+    t_phase = time.perf_counter()
+    cfg = cfg or zamba_full(True)
+    prefill_step = make_prefill_step(
+        cfg, RULES, t_max=batch["tokens"].shape[1] + 8)
     serve_step = make_serve_step(cfg, RULES)
     # [serve]'s prefill is the process's first; this one runs warm
     torch.cuda.synchronize()
@@ -1919,7 +1958,8 @@ def phase_serve_profile(params, batch, serve_numbers: dict):
     prefill_wall = serve_numbers["prefill_s"] * 1e6
     step_wall = (serve_numbers["decode_s"] / serve_numbers["decode_steps"]
                  * 1e6)
-    say("serve_profile", prefill_device_us=round(p_busy, 1),
+    say(name, phase_s=time.perf_counter() - t_phase,
+        prefill_device_us=round(p_busy, 1),
         prefill_idle_share=round(1.0 - p_busy / prefill_wall, 4),
         prefill_warm_s=warm_s,
         prefill_warm_idle_share=round(1.0 - p_busy / (warm_s * 1e6), 4),
@@ -1964,13 +2004,309 @@ def _to(tree, device):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
 
+# ------------------------------------------------------------- the zoo
+def flash_counts(counters: dict) -> tuple[int, int]:
+    """(flash launches, of them on the tensor-core kernel) so far."""
+    from repro_torch.obs.metrics import REGISTRY
 
-def model_kernels(launches: dict, errs: dict, flash_times: dict):
+    return (int(REGISTRY.counter(counters["flash_attention"]).value),
+            int(REGISTRY.counter(counters["flash_wgmma"]).value))
+
+
+def reset_counts(counters: dict) -> None:
+    from repro_torch.obs.metrics import REGISTRY
+
+    for n in counters.values():
+        REGISTRY.counter(n).reset()
+
+
+def moe_cfg(layers: int, **kw):
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(MOE_ARCH), num_layers=layers, **kw)
+
+
+def phase_serve_moe(counters: dict) -> int:
+    """qwen3-moe-30b-a3b at full width, 12 of its 48 layers, served by
+    ``launch.serve.generate`` (B 4 x S 4096, 31 greedy steps, bf16, the
+    kernels on); the counts are zeroed just before and read just after.
+    The prefill's routing gives the share of assignments that capacity
+    dropped and the max/mean expert load. Returns the flash launches."""
+    from repro_torch import models
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    cfg = moe_cfg(MOE_LAYERS, use_pallas=True)
+    n_params = models.count_params(cfg)
+    check(n_params == MOE_PARAMS, f"qwen3-moe at 12 layers has {n_params}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_params(cfg, gen, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (ZOO_B, ZOO_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    reset_counts(counters)
+    with moe.record_routing() as recs:
+        res = generate(cfg, params, tokens, ZOO_DECODE)
+    fl, fw = flash_counts(counters)
+    res_s = (res["prefill_s"], res["decode_s"])
+    check(fl == MOE_LAYERS and fw == MOE_LAYERS,
+          f"qwen3-moe prefill launched flash {fl} times ({fw} on the "
+          f"tensor-core kernel), not {MOE_LAYERS}")
+    check(tuple(res["tokens"].shape) == (ZOO_B, ZOO_DECODE)
+          and bool(torch.isfinite(res["logits"]).all()),
+          "qwen3-moe serving: bad tokens or logits")
+    check(len(recs) == MOE_LAYERS * ZOO_DECODE, f"{len(recs)} MoE calls")
+    prefill = recs[:MOE_LAYERS]  # the prefill runs first
+    m = cfg.moe
+    check(all(r["experts"].shape == (ZOO_B * ZOO_S, m.top_k)
+              for r in prefill), "the prefill's routing is not [T, k]")
+    dropped = [float(1.0 - r["keep"].float().mean()) for r in prefill]
+    load = [torch.bincount(r["experts"].reshape(-1),
+                           minlength=m.num_experts).float() for r in prefill]
+    steps = ZOO_DECODE - 1
+    say("serve_moe", phase_s=time.perf_counter() - t_phase, arch=MOE_ARCH,
+        layers=MOE_LAYERS, params=n_params,
+        param_gb=n_params * 4 / 1e9, batch=ZOO_B, prompt_len=ZOO_S,
+        prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+        decode_steps=steps, decode_tok_s=ZOO_B * steps / res["decode_s"],
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        capacity_slots=moe.capacity(cfg, ZOO_B * ZOO_S),
+        assignments=ZOO_B * ZOO_S * m.top_k,
+        dropped_share=sum(dropped) / len(dropped),
+        dropped_share_by_layer=dropped,
+        max_over_mean_load=max(float(c.max() / c.mean()) for c in load),
+        flash_launches=fl, flash_wgmma_launches=fw,
+        sample_tokens=res["tokens"][0, :16].tolist())
+    del res, recs, prefill, load
+    phase_serve_profile(params, {"tokens": tokens}, {
+        "prefill_s": res_s[0], "decode_s": res_s[1], "decode_steps": steps},
+        cfg=cfg, name="serve_moe_profile")
+    del params
+    torch.cuda.empty_cache()
+    return fl
+
+
+def phase_serve_cli(name: str, argv: list, want_flash: int,
+                    want_params: int, counters: dict) -> int:
+    """``repro_torch.launch.serve.main(argv)`` as a user runs it (its
+    vision tokens or audio frames from its seeded generator); the counts
+    are zeroed just before and read just after. Then the same model and
+    inputs, drawn again from the same seed, under the profiler
+    (``[<name>_profile]``). Returns the flash launches."""
+    from repro_torch import models
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    fl, fw = flash_counts(counters)
+    check(fl == want_flash and fw == want_flash,
+          f"{name}: prefill launched flash {fl} times ({fw} on the "
+          f"tensor-core kernel), not {want_flash}")
+    n_params = out["params"]
+    check(n_params == want_params, f"{name}: {n_params} params")
+    say(name, phase_s=time.perf_counter() - t_phase, arch=out["arch"],
+        params=out["params"],
+        param_gb=out["param_gb"], extras=out["extras"], batch=out["batch"],
+        prompt_len=out["prompt_len"], prefill_s=out["prefill_s"],
+        decode_s=out["decode_s"], decode_steps=out["decode_steps"],
+        decode_tok_s=out["decode_tok_s"],
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        flash_launches=fl, flash_wgmma_launches=fw,
+        sample_tokens=out["sample_tokens"])
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(argv[1]), use_pallas=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)  # as serve.main
+    params = models.init_params(cfg, gen, "cuda")
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (out["batch"], out["prompt_len"]), generator=gen,
+        device="cuda", dtype=torch.int32)}
+    for key, shape in out["extras"].items():
+        batch[key] = torch.randn(shape, generator=gen, device="cuda")
+    phase_serve_profile(params, batch, out, cfg=cfg, name=f"{name}_profile")
+    del params, batch
+    torch.cuda.empty_cache()
+    return fl
+
+
+def routing_ties(card: list, cpu: list, k: int, seq: int) -> dict:
+    """Card and CPU routing, call by call (``moe.record_routing`` lists of
+    the same runs): the top-k expert sets, then the kept assignments of
+    the tokens routed alike. A token routed otherwise must sit at a
+    near-tie; returns the tied tokens of each call (by record index) and
+    the sequences they touch, and fails past MAX_TIE_SHARE."""
+    check(len(card) == len(cpu), "card and CPU made other MoE calls")
+    ties, seqs, routed = {}, set(), 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        ea = torch.sort(a["experts"].cpu(), -1).values
+        eb = torch.sort(b["experts"], -1).values
+        differ = (ea != eb).any(-1)
+        p = b["probs"]
+        gap = (p[:, k - 1] - p[:, k]) <= NEAR_TIE * p[:, k - 1]
+        check(bool(gap[differ].all()), f"MoE call {i}: routing differs off "
+              f"a near-tie at tokens {differ.nonzero()[:8].tolist()}")
+        same = ~differ
+        check(torch.equal(a["keep"].cpu()[same], b["keep"][same]),
+              f"MoE call {i}: other capacity drops")
+        routed += len(differ)
+        if differ.any():
+            ties[i] = differ
+            t = differ.nonzero()[:, 0]
+            seqs |= set((t // seq).tolist() if len(differ) > seq
+                        else t.tolist())
+    n = sum(int(d.sum()) for d in ties.values())
+    check(n <= MAX_TIE_SHARE * routed, f"{n} near-tie tokens of {routed}")
+    return {"ties": ties, "seqs": seqs, "tied_tokens": n,
+            "routed_tokens": routed}
+
+
+def zoo_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """Tokens, and vision tokens or frames where the model takes them."""
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g)}
+    if cfg.is_vlm:
+        batch["vision"] = torch.randn(b, cfg.num_vision_tokens, cfg.d_model,
+                                      generator=g)
+    if cfg.is_enc_dec:
+        batch["frames"] = torch.randn(b, cfg.num_frames, cfg.d_model,
+                                      generator=g)
+    return batch
+
+
+def card_vs_cpu(cfg, card_params, cpu_params, batch, n_decode: int) -> dict:
+    """``forward`` hidden, and ``generate`` (prefill logits, then
+    ``n_decode - 1`` greedy steps) on the card and on the CPU, same
+    parameters and inputs, with MoE routing recorded on both sides. Rows
+    of tokens at a near-tie leave the hidden check; sequences holding one
+    leave the logits and tokens checks."""
+    from repro_torch import models
+    from repro_torch.launch.serve import RULES, generate
+    from repro_torch.models import moe
+
+    runs = {}
+    for side, params, dev in (("card", card_params, "cuda"),
+                              ("cpu", cpu_params, "cpu")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        extras = {k: v for k, v in b.items() if k != "tokens"}
+        with moe.record_routing() as recs:
+            h = models.forward(cfg, RULES, params, b)
+            g = generate(cfg, params, b["tokens"], n_decode, extras)
+        runs[side] = dict(h=h.detach().cpu(), logits=g["logits"].cpu(),
+                          tokens=g["tokens"].cpu(), recs=recs)
+    c, p = runs["card"], runs["cpu"]
+    bsz, s = batch["tokens"].shape
+    out = {"tied_tokens": 0, "routed_tokens": 0, "seqs_left_out": 0}
+    rows = torch.ones(bsz * s, dtype=torch.bool)
+    seqs = torch.ones(bsz, dtype=torch.bool)
+    if cfg.moe is not None:
+        r = routing_ties(c["recs"], p["recs"], cfg.moe.top_k, s)
+        for i, differ in r["ties"].items():
+            if i < cfg.num_layers:  # the forward's calls: one row a token
+                rows &= ~differ
+        seqs[list(r["seqs"])] = False
+        out.update(tied_tokens=r["tied_tokens"],
+                   routed_tokens=r["routed_tokens"],
+                   seqs_left_out=int((~seqs).sum()),
+                   forward_dropped_share=float(1.0 - torch.cat([
+                       x["keep"].cpu() for x in c["recs"][:cfg.num_layers]
+                   ]).float().mean()))
+    hc = c["h"].reshape(bsz * s, -1)[rows]
+    hp = p["h"].reshape(bsz * s, -1)[rows]
+    out["max_abs_hidden_diff"] = float((hc - hp).abs().max())
+    out["max_abs_logit_diff"] = float(
+        (c["logits"][:, seqs] - p["logits"][:, seqs]).abs().max())
+    out["tokens_equal"] = bool(torch.equal(c["tokens"][seqs],
+                                           p["tokens"][seqs]))
+    return out
+
+
+def phase_model_cpu_zoo() -> None:
+    """The four reduced zoo configs in f32 (qwen3-moe, mixtral with its
+    window of 16 under a 300-token prompt, llama-3.2-vision,
+    seamless-m4t): the card with its kernels against the CPU with the
+    plain versions, same parameters: forward hidden, prefill logits and 8
+    greedy decode steps, MoE routing compared first."""
+    from repro_torch import models
+    from repro_torch.configs import get_arch, reduced
+
+    t_phase = time.perf_counter()
+    res = {}
+    for i, arch in enumerate(ZOO_ARCHS):
+        cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="float32",
+                                  use_pallas=True)
+        cpu = models.init_params(cfg, torch.Generator().manual_seed(5 + i),
+                                 "cpu")
+        r = card_vs_cpu(cfg, _to(cpu, "cuda"), cpu,
+                        zoo_batch(cfg, 2, 300, seed=6 + i), 9)
+        d_h, d_l = r["max_abs_hidden_diff"], r["max_abs_logit_diff"]
+        check(d_h <= MODEL_CPU_TOL and d_l <= MODEL_CPU_TOL,
+              f"{arch} card vs CPU: hidden {d_h}, logits {d_l}")
+        check(r["tokens_equal"], f"{arch}: card and CPU greedy tokens differ")
+        res[arch] = r
+    say("model_cpu_zoo", phase_s=time.perf_counter() - t_phase, seq=300,
+        decode_steps=8, tol=MODEL_CPU_TOL, **res)
+
+
+def phase_moe_cpu() -> None:
+    """qwen3-moe-30b-a3b at full width (2048 wide, 128 experts top-8),
+    2 layers, B 2 x S 256, f32: the card with its kernels against the CPU,
+    same parameters (drawn on the card, copied): router top-k sets and
+    capacity drops first, then the hidden state and the logits (forward,
+    then the prefill and 3 greedy steps)."""
+    from repro_torch import models
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    cfg = moe_cfg(MOE_CPU_LAYERS, dtype="float32", use_pallas=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    card = models.init_params(cfg, gen, "cuda")
+    cpu = _to(card, "cpu")
+    t0 = time.perf_counter()
+    r = card_vs_cpu(cfg, card, cpu,
+                    zoo_batch(cfg, MOE_CPU_B, MOE_CPU_S, seed=8), 4)
+    wall = time.perf_counter() - t0
+    d_h, d_l = r["max_abs_hidden_diff"], r["max_abs_logit_diff"]
+    check(d_h <= MODEL_CPU_TOL and d_l <= MODEL_CPU_TOL,
+          f"qwen3-moe card vs CPU: hidden {d_h}, logits {d_l}")
+    check(r["tokens_equal"], "qwen3-moe: card and CPU greedy tokens differ")
+    say("moe_cpu", phase_s=time.perf_counter() - t_phase, arch=MOE_ARCH,
+        layers=MOE_CPU_LAYERS, batch=MOE_CPU_B,
+        seq=MOE_CPU_S, params=models.count_params(cfg),
+        capacity_slots=moe.capacity(cfg, MOE_CPU_B * MOE_CPU_S),
+        near_tie=NEAR_TIE, tol=MODEL_CPU_TOL, wall_s=wall, **r)
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def zoo_path(counters: dict) -> dict:
+    """The zoo's serving phases, each with its launch counts zeroed just
+    before it and read just after, then its card = CPU comparisons;
+    returns the flash launches by path."""
+    by_path = {
+        "serve_moe": phase_serve_moe(counters),
+        "serve_vlm": phase_serve_cli("serve_vlm", VLM_ARGS, 32,
+                                     9_775_157_248, counters),
+        "serve_encdec": phase_serve_cli("serve_encdec", ENCDEC_ARGS, 12,
+                                        977_758_208, counters),
+    }
+    phase_model_cpu_zoo()
+    phase_moe_cpu()
+    return by_path
+
+
+def model_kernels(launches: dict, errs: dict, flash_times: dict,
+                  flash_by_path: dict):
     """The kernels-line entries of flash attention and the SSD scan at
     Zamba2-7B's shapes in bf16 (the model's activation type). Flash
     attention's kernel, vector-unit and library times are
     ``[flash_times]``'s; the SSD scan's tensor-core and vector-unit kernels
-    are timed here in turns on the same inputs."""
+    are timed here in turns on the same inputs. Flash attention's launches
+    are those of every model path (``flash_by_path``), all on the
+    tensor-core kernel."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -1980,11 +2316,14 @@ def model_kernels(launches: dict, errs: dict, flash_times: dict):
     t = flash_times["zamba2"]
     out.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
-        replaces=FLASH_TPU, launches=launches["flash_attention"],
+        replaces=FLASH_TPU, launches=sum(flash_by_path.values()),
+        launches_by_path=flash_by_path,
         max_abs_err=errs["flash_attention"], ms=t["ms"],
         plain_ms=cuda_ms(lambda: flash_ops.flash_attention_plain(q, k, v), 2),
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=t["sdpa_ms"], wgmma_launches=launches["flash_wgmma"],
+        library_ms=t["sdpa_ms"],
+        wgmma_launches=launches["flash_wgmma"] + sum(
+            v for k, v in flash_by_path.items() if k != "zamba2"),
         vector_source=FLASH_VECTOR_SOURCE, vector_ms=t["vector_ms"],
     ))
     del q, k, v
@@ -2037,7 +2376,10 @@ def model_path(errs: dict) -> list:
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the model path")
     phase_model_cpu()
-    return model_kernels(launches, errs, flash_times)
+    # ---- the zoo's paths: each phase zeroes the counts just before it
+    flash_by_path = {"zamba2": launches["flash_attention"],
+                     **zoo_path(counters)}
+    return model_kernels(launches, errs, flash_times, flash_by_path)
 
 
 # ------------------------------------------------------------- train path

@@ -5,9 +5,12 @@
 
 The port of ``repro/launch/serve.py``. It runs on the CUDA card unless
 ``--device`` names another, with ``use_pallas=True``: the port's flash
-attention kernel in every prefill attention (the SSM prefill runs the
-plain chunked scan, as in the reference). Parameters and prompts come from
-a seeded ``torch.Generator``; no weights are read.
+attention kernel in every causal prefill self-attention (the SSM prefill
+runs the plain chunked scan, and cross-attention and the encoder the plain
+attention, as in the reference). Parameters, prompts and the stub
+frontends' inputs (``vision`` for a VLM, ``frames`` for the
+encoder-decoder) come from a seeded ``torch.Generator``; no weights are
+read.
 """
 
 from __future__ import annotations
@@ -32,11 +35,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(cfg, params, tokens, n_decode: int) -> dict:
-    """Prefill ``tokens`` [B, S], then ``n_decode - 1`` greedy steps, with
-    KV buffers of S + n_decode. Each step is ``decode_step`` and the
-    argmax of its logits, which is ``make_serve_step``'s step with the
-    logits kept.
+def generate(cfg, params, tokens, n_decode: int,
+             batch_extras: dict | None = None) -> dict:
+    """Prefill ``tokens`` [B, S] with ``batch_extras`` (``vision`` or
+    ``frames``, where the model takes them), then ``n_decode - 1`` greedy
+    steps, with KV buffers of S + n_decode; the prefill's state carries the
+    extras into decode. Each step is ``decode_step`` and the argmax of its
+    logits, which is ``make_serve_step``'s step with the logits kept.
 
     Returns {"tokens": [B, n_decode] int32 (the first from the prefill's
     logits), "logits": [n_decode, B, V] f32, "prefill_s", "decode_s"}; the
@@ -46,7 +51,8 @@ def generate(cfg, params, tokens, n_decode: int) -> dict:
                                      t_max=tokens.shape[1] + n_decode)
     _sync(device)
     t0 = time.perf_counter()
-    state, logits = prefill_step(params, {"tokens": tokens})
+    state, logits = prefill_step(params,
+                                 {"tokens": tokens, **(batch_extras or {})})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -86,13 +92,23 @@ def main(argv=None) -> dict:
     params = init_params(cfg, gen, device)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
-    res = generate(cfg, params, tokens, args.decode)
+    extras = {}
+    if cfg.is_vlm:
+        extras["vision"] = torch.randn(
+            (args.batch, cfg.num_vision_tokens, cfg.d_model), generator=gen,
+            device=device)
+    if cfg.is_enc_dec:
+        extras["frames"] = torch.randn(
+            (args.batch, cfg.num_frames, cfg.d_model), generator=gen,
+            device=device)
+    res = generate(cfg, params, tokens, args.decode, extras)
     steps = args.decode - 1
     tput = args.batch * steps / max(res["decode_s"], 1e-9)
     n_params = count_params(cfg)
     out = {
         "arch": cfg.name, "device": str(device), "batch": args.batch,
         "prompt_len": args.prompt_len, "decode_steps": steps,
+        "extras": {k: list(v.shape) for k, v in extras.items()},
         "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
         "decode_tok_s": tput, "params": n_params,
         "param_gb": n_params * 4 / 1e9,

@@ -1,8 +1,10 @@
-"""Attention: GQA/MHA, causal + sliding-window masks, KV caches for decode
-(the port of ``repro/models/attention.py``). Reference einsum path
-everywhere; the port's flash kernel (``repro_torch.kernels.
+"""Attention: GQA/MHA, causal + sliding-window masks, cross-attention, KV
+caches for decode (the port of ``repro/models/attention.py``). Reference
+einsum path everywhere; the port's flash kernel (``repro_torch.kernels.
 flash_attention``) is switched in for causal self-attention without a cache
-(forward and prefill) when ``cfg.use_pallas`` is set.
+(forward and prefill) when ``cfg.use_pallas`` is set. Cross-attention and
+the encoder's non-causal self-attention never take it, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -187,6 +189,22 @@ def self_attention(
     return out, new_cache
 
 
+def cross_attention(cfg: ModelConfig, rules: ShardingRules, p: dict, x,
+                    kv_src):
+    """Cross-attention from x [B,S,D] onto kv_src [B,Skv,D] (no RoPE, no mask;
+    VLM image tokens / enc-dec memory). Always the plain ``attend``, as in
+    the reference: the flash kernel takes causal self-attention only."""
+    dt = x.dtype
+    dh = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhe->bshe", kv_src, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhe->bshe", kv_src, p["wv"].to(dt))
+    out = attend(q, k, v, q_per_kv=cfg.q_per_kv, mask=None, scale=dh ** -0.5,
+                 rules=rules, scores_bf16=cfg.attn_scores_bf16)
+    out = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+    return shard_constraint(out, rules, "batch", "seq", None)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                   dtype, device=None):
     """Stacked KV cache [n_layers, B, T, Kv, Dh]."""
@@ -194,3 +212,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
     shape = (n_layers, batch, max_len, kv, dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_logical() -> dict:
+    return {"k": ("layers", "batch", "seq", "tp", None),
+            "v": ("layers", "batch", "seq", "tp", None)}

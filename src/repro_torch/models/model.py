@@ -2,10 +2,14 @@
 ``repro/models/model.py``).
 
 ``batch`` dict convention:
-  tokens  [B, S] integer   — decoder token ids
+  tokens  [B, S] integer   — decoder token ids (always present)
+  labels  [B, S] integer   — next-token targets (train)
+  vision  [B, Sv, D] f     — precomputed patch embeddings (VLM stub frontend)
+  frames  [B, Sf, D] f     — precomputed audio frame embeddings (audio stub)
 
 Decode state convention (threaded through serve_step):
-  {"pos": 0-d int32 tensor, "kv": {...}, "ssm": {...}}
+  {"pos": 0-d int32 tensor, "kv": {...}, "ssm": {...}, "memory"/"vision":
+  [...]}
 ``decode_step`` updates the state's caches IN PLACE: the KV buffers and SSM
 states are the largest tensors of serving, and a copy per token would
 double them. The caller's state dict is left with the new caches and the
@@ -20,14 +24,16 @@ Pallas kernels).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sharding.specs import ShardingRules
+from repro_torch.tree import leaves
 from . import params as P
 from .layers import embed, embed_defs, rmsnorm, rmsnorm_def, unembed_matrix
-from .transformer import run_stack, stack_defs
+from .transformer import Aux, encoder_defs, encoder_stack, run_stack, stack_defs
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -36,11 +42,14 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 # ------------------------------------------------------------------ params
 def abstract_params(cfg: ModelConfig) -> dict:
-    return {
+    tree = {
         "embed": embed_defs(cfg),
         "decoder": stack_defs(cfg),
         "final_norm": rmsnorm_def(cfg.d_model),
     }
+    if cfg.is_enc_dec:
+        tree["encoder"] = encoder_defs(cfg)
+    return tree
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -51,10 +60,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return P.materialize(abstract_params(cfg), generator, device)
 
 
+def param_logical(cfg: ModelConfig) -> dict:
+    return P.logical_specs(abstract_params(cfg))
+
+
+def param_shape_dtypes(cfg: ModelConfig) -> dict:
+    """Meta tensors of every parameter's shape and type (no storage)."""
+    return P.shape_dtypes(abstract_params(cfg))
+
+
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Total parameters; ``active_only`` matters only for MoE, which is not
-    ported yet (``abstract_params`` raises for it)."""
-    return P.count(abstract_params(cfg))
+    """Total parameters; with ``active_only`` an MoE model counts top_k of
+    its num_experts experts."""
+    tree = abstract_params(cfg)
+    total = P.count(tree)
+    if not (active_only and cfg.moe):
+        return total
+    expert = sum(int(np.prod(pd.shape)) for _, pd in leaves(tree)
+                 if "expert" in pd.logical)
+    active = expert * cfg.moe.top_k / cfg.moe.num_experts
+    return int(total - expert + active)
 
 
 # ----------------------------------------------------------------- forward
@@ -64,12 +89,25 @@ def _positions(tokens):
     return pos.expand(tokens.shape)
 
 
+def _aux(cfg: ModelConfig, rules: ShardingRules, params, batch) -> Aux:
+    memory = None
+    vision = None
+    if cfg.is_enc_dec:
+        memory = encoder_stack(
+            cfg, rules, params["encoder"], batch["frames"].to(_dtype(cfg))
+        )
+    if cfg.is_vlm:
+        vision = batch["vision"].to(_dtype(cfg))
+    return Aux(memory=memory, vision=vision)
+
+
 def forward(cfg: ModelConfig, rules: ShardingRules, params, batch):
     """Train-mode forward to the final norm. Returns hidden [B, S, D]."""
     dt = _dtype(cfg)
     x = embed(cfg, rules, params["embed"], batch["tokens"], dt)
+    aux = _aux(cfg, rules, params, batch)
     h, _ = run_stack(cfg, rules, params["decoder"], x,
-                     _positions(batch["tokens"]), mode="train")
+                     _positions(batch["tokens"]), aux, mode="train")
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -107,18 +145,25 @@ def loss_fn(cfg: ModelConfig, rules: ShardingRules, params, batch):
 # ------------------------------------------------------------------ serving
 def _attn_cache_layers(cfg: ModelConfig) -> tuple[int, ...]:
     """Leading stack dims of the KV cache for this family."""
-    groups, _ = cfg.scan_groups()
+    groups, per = cfg.scan_groups()
     if cfg.is_hybrid:
         return (groups,)
     if cfg.is_ssm:
         return ()
+    if cfg.is_vlm:
+        return (groups, per - 1)
     return (cfg.num_layers,)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
-                      dtype=None, device=None) -> dict:
+                      dtype=None, batch_extras: dict | None = None,
+                      device=None) -> dict:
     """Zero caches sized for a context of ``seq_len`` tokens, on ``device``
-    (the card unless the caller names another)."""
+    (the card unless the caller names another; ``"meta"`` allocates
+    nothing). ``memory`` holds ``batch_extras["frames"]`` as given (the raw
+    frames, not the encoder's output, as the reference's does; ``prefill``
+    stores the encoder's output) and ``vision`` the vision tokens, each
+    zeros when absent."""
     device = resolve_device(device)
     dt = dtype or _dtype(cfg)
     state: dict = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -145,7 +190,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
                 ssm_lead + (batch, heads, s.head_dim, s.d_state), dtype=dt,
                 device=device),
         }
+    extras = batch_extras or {}
+    if cfg.is_enc_dec:
+        frames = extras.get("frames")
+        state["memory"] = (
+            frames if frames is not None
+            else torch.zeros((batch, cfg.num_frames, cfg.d_model), dtype=dt,
+                             device=device)
+        )
+    if cfg.is_vlm:
+        vision = extras.get("vision")
+        state["vision"] = (
+            vision if vision is not None
+            else torch.zeros((batch, cfg.num_vision_tokens, cfg.d_model),
+                             dtype=dt, device=device)
+        )
     return state
+
+
+def decode_state_logical(cfg: ModelConfig) -> dict:
+    """Logical sharding axes mirroring init_decode_state's structure."""
+    spec: dict = {"pos": ()}
+    lead = _attn_cache_layers(cfg)
+    if lead:
+        ax = tuple(["layers"] * len(lead)) + ("batch", "seq", "tp", None)
+        spec["kv"] = {"k": ax, "v": ax}
+    if cfg.ssm is not None:
+        nl = 2 if cfg.is_hybrid else 1
+        ll = tuple(["layers"] * nl)
+        spec["ssm"] = {
+            "conv": ll + ("batch", None, "tp"),
+            "state": ll + ("batch", "tp", None, None),
+        }
+    if cfg.is_enc_dec:
+        spec["memory"] = ("batch", None, None)
+    if cfg.is_vlm:
+        spec["vision"] = ("batch", None, None)
+    return spec
 
 
 @torch.inference_mode()
@@ -157,13 +238,18 @@ def prefill(cfg: ModelConfig, rules: ShardingRules, params, batch, *,
     s = tokens.shape[1]
     t_max = t_max or s
     x = embed(cfg, rules, params["embed"], tokens, dt)
+    aux = _aux(cfg, rules, params, batch)
     h, caches = run_stack(cfg, rules, params["decoder"], x, _positions(tokens),
-                          mode="prefill", t_max=t_max)
+                          aux, mode="prefill", t_max=t_max)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     last_logits = logits_of(cfg, params, h[:, -1])
     state: dict = {"pos": torch.tensor(s, dtype=torch.int32,
                                        device=tokens.device)}
     state.update(caches or {})
+    if cfg.is_enc_dec:
+        state["memory"] = aux.memory
+    if cfg.is_vlm:
+        state["vision"] = aux.vision
     return state, last_logits
 
 
@@ -176,13 +262,14 @@ def decode_step(cfg: ModelConfig, rules: ShardingRules, params, state,
     pos = state["pos"]
     x = embed(cfg, rules, params["embed"], tokens, dt)
     positions = pos.reshape(1, 1).expand(tokens.shape).to(torch.int32)
+    aux = Aux(memory=state.get("memory"), vision=state.get("vision"))
     cache = {k: state[k] for k in ("kv", "ssm") if k in state}
     kv_pos = pos
     if cfg.sliding_window is not None and "kv" in state:
         kv_len = state["kv"]["k"].shape[-3]
         kv_pos = pos if kv_len < cfg.sliding_window else pos % kv_len
     h, new_caches = run_stack(cfg, rules, params["decoder"], x, positions,
-                              mode="decode", state=cache, cache_len=kv_pos,
+                              aux, mode="decode", state=cache, cache_len=kv_pos,
                               seen_len=pos)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_of(cfg, params, h[:, 0])

@@ -3,7 +3,10 @@
 Model code declares parameters as ``ParamDef`` trees (nested dicts of
 shape + logical sharding axes + init rule), as the reference does
 (``repro/models/params.py``). From one abstract tree the port derives the
-initialized parameters (``materialize``) and the parameter count.
+initialized parameters (``materialize``), stand-ins of their shapes and
+types on the ``meta`` device (``shape_dtypes``: no storage, as the
+reference's ``ShapeDtypeStruct``s), the logical axes (``logical_specs``)
+and the parameter count.
 """
 
 from __future__ import annotations
@@ -29,6 +32,15 @@ class ParamDef:
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
             raise ValueError(f"shape {self.shape} vs logical {self.logical}")
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def tree_map_defs(fn, tree):
+    """``fn`` over the ParamDef leaves of a nested dict."""
+    return tree_map_paths(lambda _, pd: fn(pd), tree)
 
 
 def materialize(tree, generator: torch.Generator, device=None):
@@ -75,6 +87,17 @@ def tree_map_paths(fn, tree, prefix: str = ""):
             for k, v in tree.items()
         }
     return fn(prefix, tree)
+
+
+def shape_dtypes(tree):
+    """ParamDef tree -> tree of meta tensors of each leaf's shape and type."""
+    return tree_map_defs(
+        lambda pd: torch.empty(pd.shape, dtype=pd.dtype, device="meta"), tree)
+
+
+def logical_specs(tree):
+    """ParamDef tree -> logical-axis-tuple tree (for sharding rules)."""
+    return tree_map_defs(lambda pd: tuple(pd.logical), tree)
 
 
 def count(tree) -> int:

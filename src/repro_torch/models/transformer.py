@@ -1,21 +1,26 @@
-"""Block composition: dense / SSM / hybrid stacks (the port of
-``repro/models/transformer.py``).
+"""Block composition: dense / MoE / SSM / hybrid / VLM / enc-dec stacks
+(the port of ``repro/models/transformer.py``).
 
 Parameters keep the reference's stacked layout (a leading layer axis, or
-[groups, per] for the Zamba2 hybrid), so converted parameters match leaf
-for leaf; where the reference scans over that axis, the port loops in
+[groups, per] for the Zamba2 hybrid, [groups, per-1] and [groups] for the
+VLM's self- and cross-attention blocks), so converted parameters match
+leaf for leaf; where the reference scans over that axis, the port loops in
 Python. Three execution modes share the block math:
   train    — no caches (``models.forward``); with ``cfg.remat`` each
-             block (each group for the hybrid) is recomputed in the
-             backward pass (``_maybe_remat``)
+             block (each group for the hybrid and the VLM) is recomputed
+             in the backward pass (``_maybe_remat``)
   prefill  — same math, additionally emits KV/SSM caches, stacked
   decode   — single token, caches updated in place
 
-MoE, VLM cross-attention and encoder-decoder stacks are not ported yet
-(ROADMAP Queue 1) and raise ``NotImplementedError``.
+The VLM's cross-attention reads ``Aux.vision`` and the decoder of the
+encoder-decoder reads ``Aux.memory`` (the encoder's output) in every mode;
+decode recomputes their K and V at every step and layer, as the reference
+does.
 """
 
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -27,30 +32,32 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding.specs import ShardingRules
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import mlp, mlp_defs, rmsnorm
+from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_def
 from .params import ParamDef
 
 
-def _not_ported(cfg: ModelConfig) -> None:
-    kind = ("MoE" if cfg.moe is not None else "VLM cross-attention"
-            if cfg.is_vlm else "encoder-decoder" if cfg.is_enc_dec else None)
-    if kind is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} stack is not ported yet (ROADMAP "
-            "Queue 1)"
-        )
+class Aux(NamedTuple):
+    """Side inputs: encoder memory (enc-dec) or vision tokens (VLM)."""
+
+    memory: Any = None  # [B, Skv, D]
+    vision: Any = None  # [B, Sv, D]
 
 
 # ------------------------------------------------------------ param defs
 def dense_block_defs(cfg: ModelConfig, lead=()) -> dict:
     ll = tuple(["layers"] * len(lead))
-    return {
+    d = {
         "ln1": ParamDef(lead + (cfg.d_model,), ll + (None,), init="ones"),
         "attn": attn.attn_defs(cfg, lead),
         "ln2": ParamDef(lead + (cfg.d_model,), ll + (None,), init="ones"),
-        "ffn": mlp_defs(cfg, lead),
     }
+    if cfg.moe is not None:
+        d["ffn"] = moe_mod.moe_defs(cfg, lead)
+    else:
+        d["ffn"] = mlp_defs(cfg, lead)
+    return d
 
 
 def ssm_block_defs(cfg: ModelConfig, lead=()) -> dict:
@@ -61,9 +68,18 @@ def ssm_block_defs(cfg: ModelConfig, lead=()) -> dict:
     }
 
 
+def xattn_block_defs(cfg: ModelConfig, lead=()) -> dict:
+    ll = tuple(["layers"] * len(lead))
+    return {
+        "ln1": ParamDef(lead + (cfg.d_model,), ll + (None,), init="ones"),
+        "attn": attn.attn_defs(cfg, lead, cross=True),
+        "ln2": ParamDef(lead + (cfg.d_model,), ll + (None,), init="ones"),
+        "ffn": mlp_defs(cfg, lead),
+    }
+
+
 def stack_defs(cfg: ModelConfig) -> dict:
     """Parameter defs for the decoder stack of ``cfg``."""
-    _not_ported(cfg)
     groups, per = cfg.scan_groups()
     if cfg.is_hybrid:
         return {
@@ -72,7 +88,32 @@ def stack_defs(cfg: ModelConfig) -> dict:
         }
     if cfg.is_ssm:
         return {"ssm_blocks": ssm_block_defs(cfg, lead=(cfg.num_layers,))}
+    if cfg.is_vlm:
+        return {
+            "self_blocks": dense_block_defs(cfg, lead=(groups, per - 1)),
+            "cross_blocks": xattn_block_defs(cfg, lead=(groups,)),
+        }
+    if cfg.is_enc_dec:
+        L = cfg.num_layers
+        ll = ("layers",)
+        return {
+            "dec_blocks": {
+                "ln1": ParamDef((L, cfg.d_model), ll + (None,), init="ones"),
+                "attn": attn.attn_defs(cfg, (L,)),
+                "lnx": ParamDef((L, cfg.d_model), ll + (None,), init="ones"),
+                "xattn": attn.attn_defs(cfg, (L,), cross=True),
+                "ln2": ParamDef((L, cfg.d_model), ll + (None,), init="ones"),
+                "ffn": mlp_defs(cfg, (L,)),
+            }
+        }
     return {"blocks": dense_block_defs(cfg, lead=(cfg.num_layers,))}
+
+
+def encoder_defs(cfg: ModelConfig) -> dict:
+    return {
+        "blocks": dense_block_defs(cfg, lead=(cfg.encoder_layers,)),
+        "norm": rmsnorm_def(cfg.d_model),
+    }
 
 
 # ------------------------------------------------------------ block bodies
@@ -83,7 +124,11 @@ def dense_block(cfg, rules, p, x, positions, *, cache=None, cache_len=None,
         cache=cache, cache_len=cache_len, seen_len=seen_len, emit_kv=emit_kv,
     )
     x = x + h
-    x = x + mlp(cfg, rules, p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        x = x + moe_mod.moe_mlp(cfg, rules, p["ffn"], h2)
+    else:
+        x = x + mlp(cfg, rules, p["ffn"], h2)
     return x, new_cache
 
 
@@ -99,6 +144,15 @@ def ssm_block_prefill(cfg, rules, p, x):
         cfg, rules, p["ssm"], rmsnorm(x, p["ln1"], cfg.norm_eps)
     )
     return x + h, cache
+
+
+def xattn_block(cfg, rules, p, x, aux_kv):
+    h = attn.cross_attention(
+        cfg, rules, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), aux_kv
+    )
+    x = x + h
+    x = x + mlp(cfg, rules, p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x
 
 
 # -------------------------------------------------------------- the stacks
@@ -157,6 +211,7 @@ def run_stack(
     params: dict,
     x,
     positions,
+    aux: Aux = Aux(),
     *,
     mode: str = "train",  # "train" | "prefill" | "decode"
     state: dict | None = None,  # decode caches (stacked)
@@ -169,17 +224,20 @@ def run_stack(
     updated in place."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    _not_ported(cfg)
-    args = (cfg, rules, params, x, positions, mode, state, t_max, cache_len,
-            seen_len)
+    args = (cfg, rules, params, x, positions, aux, mode, state, t_max,
+            cache_len, seen_len)
     if cfg.is_hybrid:
         return _hybrid_stack(*args)
     if cfg.is_ssm:
         return _ssm_stack(*args)
+    if cfg.is_vlm:
+        return _vlm_stack(*args)
+    if cfg.is_enc_dec:
+        return _encdec_stack(*args)
     return _dense_stack(*args)
 
 
-def _dense_stack(cfg, rules, params, x, positions, mode, state, t_max,
+def _dense_stack(cfg, rules, params, x, positions, aux, mode, state, t_max,
                  cache_len, seen_len):
     blocks, n = params["blocks"], cfg.num_layers
     if mode == "train":
@@ -204,7 +262,7 @@ def _dense_stack(cfg, rules, params, x, positions, mode, state, t_max,
     return x, {"kv": kv}
 
 
-def _ssm_stack(cfg, rules, params, x, positions, mode, state, t_max,
+def _ssm_stack(cfg, rules, params, x, positions, aux, mode, state, t_max,
                cache_len, seen_len):
     blocks, n = params["ssm_blocks"], cfg.num_layers
     if mode == "train":
@@ -226,7 +284,7 @@ def _ssm_stack(cfg, rules, params, x, positions, mode, state, t_max,
     return x, {"ssm": caches}
 
 
-def _hybrid_stack(cfg, rules, params, x, positions, mode, state, t_max,
+def _hybrid_stack(cfg, rules, params, x, positions, aux, mode, state, t_max,
                   cache_len, seen_len):
     groups, per = cfg.scan_groups()
     blocks, shared = params["ssm_blocks"], params["shared"]
@@ -260,3 +318,94 @@ def _hybrid_stack(cfg, rules, params, x, positions, mode, state, t_max,
     if mode == "decode":
         return x, {"ssm": state["ssm"], "kv": state["kv"]}
     return x, {"ssm": ssm_c, "kv": kv_c}
+
+
+def _vlm_stack(cfg, rules, params, x, positions, aux, mode, state, t_max,
+               cache_len, seen_len):
+    groups, per = cfg.scan_groups()
+    selfb, cross = params["self_blocks"], params["cross_blocks"]
+    vision = aux.vision
+    if mode == "train":
+        def group(h, pg, pc):
+            for i in range(per - 1):
+                h, _ = dense_block(cfg, rules, _at(pg, i), h, positions)
+            return xattn_block(cfg, rules, pc, h, vision)
+
+        body = _maybe_remat(cfg, group, True)
+        for g in range(groups):
+            x = body(x, _at(selfb, g), _at(cross, g))
+        return x, None
+    kv_c = None
+    for g in range(groups):
+        for i in range(per - 1):
+            p = _at(selfb, g, i)
+            if mode == "decode":
+                x, _ = dense_block(cfg, rules, p, x, positions,
+                                   cache=_at(state["kv"], g, i),
+                                   cache_len=cache_len, seen_len=seen_len)
+            else:
+                x, kv = dense_block(cfg, rules, p, x, positions,
+                                    emit_kv=t_max)
+                kv_c = _store(kv_c, (groups, per - 1), (g, i), kv)
+        x = xattn_block(cfg, rules, _at(cross, g), x, vision)
+    if mode == "decode":
+        return x, {"kv": state["kv"]}
+    return x, {"kv": kv_c}
+
+
+def _encdec_block(cfg, rules, p, x, positions, memory, **kw):
+    """One decoder layer: causal self-attention, cross-attention onto the
+    encoder's memory, MLP."""
+    h, kv = attn.self_attention(cfg, rules, p["attn"],
+                                rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
+                                **kw)
+    x = x + h
+    x = x + attn.cross_attention(cfg, rules, p["xattn"],
+                                 rmsnorm(x, p["lnx"], cfg.norm_eps), memory)
+    x = x + mlp(cfg, rules, p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, kv
+
+
+def _encdec_stack(cfg, rules, params, x, positions, aux, mode, state, t_max,
+                  cache_len, seen_len):
+    blocks, n = params["dec_blocks"], cfg.num_layers
+    memory = aux.memory
+    if mode == "train":
+        body = _maybe_remat(
+            cfg, lambda h, p: _encdec_block(cfg, rules, p, h, positions,
+                                            memory)[0], True)
+        for i in range(n):
+            x = body(x, _at(blocks, i))
+        return x, None
+    kv = None
+    for i in range(n):
+        p = _at(blocks, i)
+        if mode == "decode":
+            x, _ = _encdec_block(cfg, rules, p, x, positions, memory,
+                                 cache=_at(state["kv"], i),
+                                 cache_len=cache_len, seen_len=seen_len)
+        else:
+            x, c = _encdec_block(cfg, rules, p, x, positions, memory,
+                                 emit_kv=t_max)
+            kv = _store(kv, (n,), (i,), c)
+    if mode == "decode":
+        return x, {"kv": state["kv"]}
+    return x, {"kv": kv}
+
+
+def encoder_stack(cfg: ModelConfig, rules, params, frames):
+    """Bidirectional encoder over precomputed frame embeddings [B, Sf, D]:
+    non-causal self-attention (the plain ``attend``, never the flash
+    kernel), no remat, as in the reference."""
+    positions = torch.arange(frames.shape[1], dtype=torch.int32,
+                             device=frames.device)[None, :]
+    positions = positions.expand(frames.shape[:2])
+    x = frames
+    for i in range(cfg.encoder_layers):
+        p = _at(params["blocks"], i)
+        h, _ = attn.self_attention(cfg, rules, p["attn"],
+                                   rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                   positions, is_causal=False)
+        x = x + h
+        x = x + mlp(cfg, rules, p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return rmsnorm(x, params["norm"], cfg.norm_eps)

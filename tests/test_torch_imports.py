@@ -40,7 +40,8 @@ def test_port_files_exist():
     "configs/base.py", "configs/archs.py", "configs/shapes.py",
     "sharding/specs.py", "models/params.py", "models/layers.py",
     "models/attention.py", "models/ssm.py", "models/transformer.py",
-    "models/model.py", "serve/serve_step.py", "launch/serve.py",
+    "models/model.py", "models/moe.py", "serve/serve_step.py",
+    "launch/serve.py", "launch/inputs.py",
     "kernels/nvcc.py", "kernels/flash_attention/ops.py",
     "kernels/flash_attention/ref.py", "kernels/ssd_scan/ops.py",
     "kernels/ssd_scan/ref.py", "kernels/quantize/ops.py",
