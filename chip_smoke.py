@@ -20,8 +20,8 @@ IPM, the card's sim) and on the CPU (torch IPM, the ``soa`` engine) and
 held equal run for run. The calibrated path follows, the counts set to 0
 again, each run the same way: the calibration benchmark's calibrated and
 stale services (``[calibrated]``), the probe-policy benchmark's race and
-epoch rolls (``[probe_race]``), the fleet benchmark's fleet of 24 jobs in
-1 MB chunks and its three isolated services (``[fleet_service]``), each
+epoch rolls (``[probe_race]``), the fleet benchmark's fleet (12 of its 24
+jobs) in 1 MB chunks and its three isolated services (``[fleet_service]``), each
 checked against what its benchmark asserts, and the fleet's cohort
 admission (``[fleet_cohort]``); then the sim's kernels against their
 plain versions at every service phase's shapes. The model path follows:
@@ -51,7 +51,15 @@ seed) trained by the port's ``Trainer`` as ``launch/train.py`` builds
 it, 30 steps of 8 x 2048 tokens with every gradient leaf through the
 kernels and a restart from the step-10 checkpoint after a failure
 injected at step 17; error feedback over its real gradients; and a
-smaller trainer on the card against the CPU. Each phase prints one
+smaller trainer on the card against the CPU. The pod ring follows
+(``[podring]``): the same smollm-135m through
+``make_podring_train_step`` on 2 and then 4 ranks spawned on the one
+card (gloo), its global batch split over the pods, 3 steps with int8 on
+the wire (the quantize kernels, their launches counted in the ranks
+from 0) and 3 raw, the ring ordered by the planner's throughput between
+four pod regions; then ``[reshard]``: a pod join priced on the port's
+planner, and the 2-pod run's trained state resharded and its checkpoint
+restored onto a one-rank mesh on the card. Each phase prints one
 line; the line before the last lists every kernel with its launches on
 the main paths, its error against its plain version, its time and its
 bound; the last line is the device summary. Any failed
@@ -127,6 +135,10 @@ PROBE_VOLUME_GB, ROLL_VOLUME_GB = 4.0, 8.0
 # the CPU twin runs the fleet arm alone, for the script's time limit)
 TENANT_SRC2 = "azure:canadacentral"
 TENANT_JOBS, TENANT_SIZES_GB = 8, (2.0, 4.0, 3.0, 6.0)
+# [fleet_service] runs 4 of each tenant's 8 jobs (12 of the benchmark's 24),
+# card, CPU twin and isolated arms alike, for the script's time limit;
+# [fleet_cohort] admits all 24
+FLEET_SERVICE_JOBS = 4
 TENANT_STAGGER_S, TENANT_CHUNK_MB = 12.0, 1.0
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and the vector (non-tensor)
 # peaks the kernels' float operations run at
@@ -1236,11 +1248,12 @@ def probe_race_extra(reps) -> dict:
                 epoch_roll_struct_builds=rolled.epoch_roll_builds)
 
 
-def fleet_world(top):
-    """``benchmarks/fleet_bench.py``'s world (:32-88) at its full size:
-    the drift model's factory, the three tenants and each tenant's job
-    requests (as keyword dicts: admission rewrites a request's goal and
-    arrival)."""
+def fleet_world(top, jobs_per_tenant: int = TENANT_JOBS):
+    """``benchmarks/fleet_bench.py``'s world (:32-88), full size at the
+    default ``jobs_per_tenant``: the drift model's factory, the three
+    tenants and each tenant's job requests (as keyword dicts: admission
+    rewrites a request's goal and arrival); the deadline slack scales
+    with the jobs per tenant, as the benchmark's does."""
     from repro_torch.calibrate import DriftModel, Incident
     from repro_torch.transfer import TenantSpec
 
@@ -1255,12 +1268,12 @@ def fleet_world(top):
                TenantSpec("backup", weight=1.0, vm_quota=4),
                TenantSpec("ml-sync", weight=2.0, slo_class="deadline",
                           vm_quota=4)]
-    slack_s = 30.0 + 15.0 * (TENANT_JOBS - 2)
+    slack_s = 30.0 + 15.0 * (jobs_per_tenant - 2)
     jobs = {}
     for ti, spec in enumerate(tenants):
         src = TENANT_SRC2 if spec.name == "backup" else CAL_SRC
         jobs[spec.name] = []
-        for j in range(TENANT_JOBS):
+        for j in range(jobs_per_tenant):
             vol = TENANT_SIZES_GB[(ti + j) % len(TENANT_SIZES_GB)]
             jobs[spec.name].append(dict(
                 name=f"{spec.name}-{j}", src=src, dst=CAL_DST, volume_gb=vol,
@@ -1282,13 +1295,13 @@ def fleet_controller(top, make_drift, tenants, jobs, **kw):
 
 
 def fleet_suite(top, isolated=True, **svc_kw):
-    """``benchmarks/fleet_bench.py``'s arms (:90-135): the fleet, then
-    (``isolated``) each tenant's isolated calibrated service at its
-    quota."""
+    """``benchmarks/fleet_bench.py``'s arms (:90-135) at
+    ``FLEET_SERVICE_JOBS`` jobs a tenant: the fleet, then (``isolated``)
+    each tenant's isolated calibrated service at its quota."""
     from repro_torch.calibrate import CalibratedTransferService
     from repro_torch.transfer import TransferRequest
 
-    make_drift, tenants, jobs = fleet_world(top)
+    make_drift, tenants, jobs = fleet_world(top, FLEET_SERVICE_JOBS)
     kw = dict(max_relays=6, check_interval_s=4.0, max_segments=150, **svc_kw)
     fleet = fleet_controller(top, make_drift, tenants, jobs,
                              probe_dedup_window_s=3.0, **kw)
@@ -2881,6 +2894,470 @@ def train_path(errs: dict) -> list:
     return out
 
 
+# ----------------------------------------------------------- pod-ring path
+# [podring]: make_podring_train_step on launch/train.py's full smollm-135m
+# (train_cfg), the global batch TRAIN_B x TRAIN_S split over the pods, on
+# 2 and then 4 ranks spawned on the one card (gloo, file rendezvous):
+# PODRING_STEPS steps with int8 on the wire, then as many raw, from one
+# initial state. The pods sit in POD_REGIONS (the first n of them) and the
+# ring follows the planner's max throughput between them
+PODRING_WORLDS, PODRING_STEPS, PODRING_THREADS = (2, 4), 3, 2
+POD_REGIONS = ("aws:us-west-2", "azure:westeurope", "gcp:us-central1",
+               "aws:eu-central-1")  # ring [0, 2, 1, 3] on 4 pods
+PODRING_LOSS_TOL = 1e-2  # int8-wire losses against the raw run's (4 pods)
+# the raw ring's first-step gradients, relative to each leaf's largest
+# value: against the mean of the pods' own gradients, each computed by one
+# process on the pod's rows, only the f32 sum order may differ. Against
+# the whole batch in one process they are held in an f32 step (the
+# existing card-vs-CPU tolerance): in bf16 a GEMM over the whole batch
+# and one over a pod's rows round differently, and 30 layers carry it to
+# ~2% of a leaf's largest gradient (measured; printed, not held)
+PODRING_SHARD_TOL = 1e-5
+QUANT_COUNTERS = {"quantize_int8": "kernels.quantize_int8.launches",
+                  "dequantize_int8": "kernels.dequantize_int8.launches"}
+
+
+def pod_grid(top) -> np.ndarray:
+    """The planner's max throughput (Gbps) between every ordered pair of
+    POD_REGIONS on the default topology."""
+    from repro_torch.core import Planner, PlanSpec
+
+    planner = Planner(top)
+    n = len(POD_REGIONS)
+    grid = np.zeros((n, n))
+    for i, a in enumerate(POD_REGIONS):
+        for j, b in enumerate(POD_REGIONS):
+            if i != j:
+                grid[i, j] = planner.plan(PlanSpec(objective="max_throughput",
+                                                   src=a, dst=b))
+    return grid
+
+
+def ring_wire_bytes(shapes: list, n: int, compress: bool) -> int:
+    """Bytes one rank sends in one ring all-reduce of leaves of ``shapes``
+    over n pods, as ``transfer.collective`` moves them: 2 pods exchange
+    each leaf once (int8: the last axis padded to a block, plus one f32
+    scale a block); n > 2 pods send 2(n-1) segments of ceil(size / n)
+    values (int8: plus one f32 scale per started block of a segment)."""
+    total = 0
+    for shape in shapes:
+        size = int(np.prod(shape))
+        if n == 2:
+            last = shape[-1]
+            padded = size // last * (last + (-last) % QUANT_BLOCK)
+            total += (padded + 4 * padded // QUANT_BLOCK if compress
+                      else 4 * size)
+        else:
+            seg = -(-size // n)
+            hop = seg + 4 * -(-seg // QUANT_BLOCK) if compress else 4 * seg
+            total += 2 * (n - 1) * hop
+    return total
+
+
+def bits_digest(tree) -> list:
+    """One integer per leaf, a position-weighted sum of its bits: two
+    leaves with the same digest are, but for a vanishing chance, bit
+    for bit the same."""
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        b = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+        w = torch.arange(b.numel(), device=b.device) % 65_521 + 1
+        out.append(int((b * w).sum()))
+    return out
+
+
+def step_bound(g0, n: int) -> torch.Tensor:
+    """Per element of a leaf averaged over an int8 ring of n > 2 pods, one
+    quantization step of the block that carried it: the block's scale
+    over n, the block's sum bounded by n (absmax(g0) + its own step)."""
+    flat = g0.reshape(-1)
+    seg = -(-flat.numel() // n)
+    rows = torch.nn.functional.pad(flat, (0, seg * n - flat.numel()))
+    rows = rows.reshape(n, seg)
+    blocks = torch.nn.functional.pad(rows, (0, (-seg) % QUANT_BLOCK))
+    absmax = blocks.reshape(n, -1, QUANT_BLOCK).abs().amax(-1, keepdim=True)
+    bound = absmax * (1.0 + 1.0 / 127.0) / 127.0
+    bound = bound.expand(-1, -1, QUANT_BLOCK).reshape(n, -1)[:, :seg]
+    return bound.reshape(-1)[:flat.numel()].reshape(g0.shape)
+
+
+def podring_rank(rank: int, world: int, grid, batches, workdir: str):
+    """One pod of [podring], spawned (so module-level). Runs the int8 and
+    the raw pod-ring steps from one initial state, then the ring alone on
+    the card and on the CPU; returns its numbers, and on rank 0 its first
+    raw step's averaged gradients (host) and a checkpoint of its final
+    state."""
+    import torch.distributed as dist
+
+    from repro_torch import convert, models
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.sharding.specs import ShardingRules
+    from repro_torch.train import init_opt_state
+    from repro_torch.train.train_step import make_podring_train_step
+    from repro_torch.transfer import collective
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh_for(world, 1, 1)
+    group = mesh.get_group("pod")
+    order = collective.choose_ring_order(grid)
+    cfg = train_cfg()
+    ring = collective.ring_allreduce_tree
+    record: dict = {}
+
+    def timed_ring(grads, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring(grads, *a, **kw)
+        torch.cuda.synchronize()
+        record.setdefault("ring_s", []).append(time.perf_counter() - t0)
+        record.setdefault("grads", out)
+        return out
+
+    # the step calls the ring through its module: time it there
+    collective.ring_allreduce_tree = timed_ring
+    out = {"order": order, "runs": {}}
+    for comp in (True, False):
+        record.clear()
+        params = models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        opt = init_opt_state(params)
+        step = make_podring_train_step(
+            cfg, ShardingRules(batch=None, fsdp=None, tp=None),
+            train_opt(PODRING_STEPS), mesh, compress_wire=comp,
+            pod_tput=grid)
+        torch.cuda.reset_peak_memory_stats()
+        # ---- this path's launch counts start at 0 here
+        for c in QUANT_COUNTERS.values():
+            REGISTRY.counter(c).reset()
+        run = {"losses": [], "step_s": [], "digests": []}
+        for b in batches:
+            batch = convert.batch_from_numpy(b, "cuda")
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            run["step_s"].append(time.perf_counter() - t0)
+            run["losses"].append(float(m["loss"]))
+            run["digests"].append(bits_digest(params))
+        run["launches"] = {k: int(REGISTRY.counter(c).value)
+                           for k, c in QUANT_COUNTERS.items()}
+        run["ring_s"] = record["ring_s"]
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        grads = record.pop("grads")
+        if comp and world > 2:
+            # every rank against rank 0: gradients within a step, params
+            # within AdamW's steps
+            gap_steps, gap_params = 0.0, 0.0
+            for _, g in leaves(grads):
+                g0 = g.to("cpu", copy=True)
+                dist.broadcast(g0, 0, group=group)
+                g0 = g0.cuda()
+                gap_steps = max(gap_steps, float(
+                    ((g - g0).abs() / step_bound(g0, world)).max()))
+            for _, p in leaves(params):
+                p0 = p.to("cpu", copy=True)
+                dist.broadcast(p0, 0, group=group)
+                gap_params = max(gap_params,
+                                 float((p - p0.cuda()).abs().max()))
+            run["grad_gap_in_steps"] = gap_steps
+            run["param_gap"] = gap_params
+        if not comp and rank == 0:
+            run["grads"] = {k: t.cpu() for k, t in leaves(grads)}
+            ckpt = CheckpointManager(f"{workdir}/ckpt_{world}")
+            ckpt.save_async(PODRING_STEPS, {"params": params, "opt": opt})
+            ckpt.wait()
+        out["runs"][comp] = run
+        del params, opt, grads, step
+        torch.cuda.empty_cache()
+    # one raw f32 step: its gradients against the whole batch's
+    record.clear()
+    cfg32 = train_cfg(dtype="float32")
+    params = models.init_params(
+        cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = make_podring_train_step(
+        cfg32, ShardingRules(batch=None, fsdp=None, tp=None),
+        train_opt(PODRING_STEPS), mesh, compress_wire=False, pod_tput=grid)
+    step(params, init_opt_state(params),
+         convert.batch_from_numpy(batches[0], "cuda"))
+    if rank == 0:
+        out["grads32"] = {k: t.cpu() for k, t in leaves(record["grads"])}
+    record.clear()
+    del params, step
+    torch.cuda.empty_cache()
+    collective.ring_allreduce_tree = ring
+
+    # the ring alone: the card against a gloo CPU group on the same inputs
+    shapes = grad_shapes()
+    g = gradient_like(shapes, seed=100 + rank)
+    same, ring_s = {}, {}
+    for comp in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = ring(g, group, order, compress_wire=comp)
+        torch.cuda.synchronize()
+        ring_s[comp] = time.perf_counter() - t0
+        cpu = ring({k: v.cpu() for k, v in g.items()}, group, order,
+                   compress_wire=comp)
+        same[comp] = all(torch.equal(card[k].cpu(), cpu[k]) for k in g)
+    out["card_equals_cpu"] = same
+    out["ring_alone_s"] = ring_s
+    return out
+
+
+def phase_podring(top, workdir: Path, errs: dict) -> dict:
+    """[podring] on 2 and 4 ranks (module constants); holds the checks the
+    module docstring names and returns the ranks' launch counts summed
+    over both worlds, and the 2-rank run's checkpoint directory."""
+    from repro_torch import convert, models
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.sharding.specs import ShardingRules
+    from repro_torch.train import init_opt_state, make_train_step
+    from repro_torch.train.optimizer import schedule
+    from repro_torch.transfer.collective import choose_ring_order, mean_of_sum
+    from repro_torch.tree import leaves
+
+    cfg = train_cfg()
+    grid = pod_grid(top)
+    pipe = ShardedTokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S)
+    batches = [next(pipe) for _ in range(PODRING_STEPS)]
+    shapes = grad_shapes()
+    lr_sum = sum(float(schedule(train_opt(PODRING_STEPS), torch.tensor(t)))
+                 for t in range(1, PODRING_STEPS + 1))
+
+    def grads_of(cfg, rows: slice) -> dict:
+        """One process's first-step gradients on those rows of the first
+        batch (host copies, by dotted path)."""
+        record: dict = {}
+        params = models.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        step = make_train_step(
+            cfg, ShardingRules(batch=None, fsdp=None, tp=None),
+            train_opt(PODRING_STEPS),
+            grad_transform=lambda g: record.setdefault("g", g))
+        step(params, init_opt_state(params), convert.batch_from_numpy(
+            {k: v[rows] for k, v in batches[0].items()}, "cuda"))
+        out = {k: v.cpu() for k, v in leaves(record.pop("g"))}
+        del params, step, record
+        torch.cuda.empty_cache()
+        return out
+
+    # the raw ring's first-step references: the whole batch in one process
+    # (bf16, and an f32 step), and the mean of the pods' shards, each in
+    # one process
+    whole = grads_of(cfg, slice(None))
+    whole32 = grads_of(train_cfg(dtype="float32"), slice(None))
+    shard_mean = {}
+    for n in PODRING_WORLDS:
+        rows = TRAIN_B // n
+        parts = [grads_of(cfg, slice(p * rows, (p + 1) * rows))
+                 for p in range(n)]
+        shard_mean[n] = {k: mean_of_sum(sum(g[k] for g in parts), n)
+                         for k in whole}
+        del parts
+
+    # the kernels against their plain versions at the ring's segments
+    g = gradient_like(shapes, seed=7)
+    for k, x in g.items():
+        last = x.shape[-1]
+        _same_quant(torch.nn.functional.pad(x, (0, (-last) % QUANT_BLOCK)),
+                    QUANT_BLOCK, f"2-pod leaf {k}", errs)
+        for n in PODRING_WORLDS[1:]:
+            flat = x.reshape(-1)
+            seg = -(-flat.numel() // n)
+            rows = torch.nn.functional.pad(flat, (0, seg * n - flat.numel()))
+            for r in rows.reshape(n, seg):
+                _same_quant(r, QUANT_BLOCK, f"{n}-pod segment of {k}", errs)
+    del g
+
+    launches = {k: 0 for k in QUANT_COUNTERS}
+    numbers = {}
+    for n in PODRING_WORLDS:
+        sub = grid[:n, :n]
+        order = choose_ring_order(sub)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(podring_rank, n, (sub, batches, str(workdir)),
+                            workdir=workdir, threads=PODRING_THREADS)
+        wall = time.perf_counter() - t0
+        check(all(r["order"] == order for r in ranks), "ring orders differ")
+        check(n == 2 or order != list(range(n)),
+              f"the planner's ring {order} is the identity")
+        comp = [r["runs"][True] for r in ranks]
+        raw = [r["runs"][False] for r in ranks]
+        for name in launches:
+            got = sum(r["launches"][name] for r in comp)
+            check(got > 0, f"{name} was not launched on the {n}-pod ring")
+            check(all(r["launches"][name] == 0 for r in raw),
+                  f"{name} launched on the raw {n}-pod ring")
+            launches[name] += got
+        for i in range(PODRING_STEPS):
+            check(all(r["digests"][i] == raw[0]["digests"][i] for r in raw),
+                  f"{n} pods, raw step {i + 1}: the ranks' parameters "
+                  "differ")
+        if n == 2:
+            check(all(comp[1]["digests"][i] == comp[0]["digests"][i]
+                      for i in range(PODRING_STEPS)),
+                  "2 pods, int8 wire: the ranks' parameters differ")
+        else:
+            worst = max(r["grad_gap_in_steps"] for r in comp)
+            pgap = max(r["param_gap"] for r in comp)
+            check(worst <= 1.0, f"{n} pods, int8 wire: gradients "
+                  f"{worst} quantization steps from rank 0's")
+            allowed = TRAIN_CPU_TOL["adam_steps"] * lr_sum
+            check(pgap <= allowed, f"{n} pods, int8 wire: parameters {pgap} "
+                  f"from rank 0's, more than AdamW's steps allow ({allowed})")
+        loss_gap = max(abs(a - b) for a, b in zip(comp[0]["losses"],
+                                                   raw[0]["losses"]))
+        check(n == 2 or loss_gap <= PODRING_LOSS_TOL,
+              f"{n} pods: int8-wire losses {loss_gap} from the raw run's")
+        ring_grads = raw[0].pop("grads")
+        ring32 = ranks[0].pop("grads32")
+
+        def rel(got, ref):
+            return {k: float((got[k] - w).abs().max()
+                             / w.abs().max().clamp_min(1e-30))
+                    for k, w in ref.items()}
+
+        shard_rel = rel(ring_grads, shard_mean[n])
+        grad_rel, rel32 = rel(ring_grads, whole), rel(ring32, whole32)
+        check(max(shard_rel.values()) <= PODRING_SHARD_TOL,
+              f"{n} pods: the raw ring's first-step gradients differ from "
+              f"the mean of the pods' own: {shard_rel}")
+        check(max(rel32.values()) <= TRAIN_CPU_TOL["grads"],
+              f"{n} pods: the raw ring's first f32 step's gradients differ "
+              f"from the whole batch's: {rel32}")
+        for r in ranks:
+            same = r["card_equals_cpu"]
+            check(all(same.values()),
+                  f"{n} pods: the card's ring != the CPU's: {same}")
+        sizes = list(shapes.values())
+        numbers[n] = dict(
+            order=order, wall_s=wall,
+            step_s={"int8": [float(np.median(r["step_s"])) for r in comp],
+                    "raw": [float(np.median(r["step_s"])) for r in raw]},
+            ring_s_per_step={"int8": float(np.median(comp[0]["ring_s"])),
+                             "raw": float(np.median(raw[0]["ring_s"]))},
+            ring_alone_s={"int8": ranks[0]["ring_alone_s"][True],
+                          "raw": ranks[0]["ring_alone_s"][False]},
+            wire_bytes_per_step_rank={
+                "int8": ring_wire_bytes(sizes, n, True),
+                "raw": ring_wire_bytes(sizes, n, False)},
+            losses={"int8": comp[0]["losses"], "raw": raw[0]["losses"]},
+            max_loss_gap=loss_gap,
+            grad_gap_in_steps=(None if n == 2 else
+                               max(r["grad_gap_in_steps"] for r in comp)),
+            param_gap=None if n == 2 else max(r["param_gap"] for r in comp),
+            adam_bound=TRAIN_CPU_TOL["adam_steps"] * lr_sum,
+            first_step_grad_rel_vs_pod_mean=max(shard_rel.values()),
+            f32_first_step_grad_rel_vs_whole_batch=max(rel32.values()),
+            bf16_first_step_grad_rel_vs_whole_batch=max(grad_rel.values()),
+            bf16_grad_rel_vs_whole_batch=grad_rel,
+            peak_gb_per_rank=[max(a["peak_gb"], b["peak_gb"])
+                              for a, b in zip(comp, raw)],
+            launches={k: sum(r["launches"][k] for r in comp)
+                      for k in QUANT_COUNTERS},
+            card_equals_cpu=True)
+        say("podring", pods=n, **numbers[n])
+        del ranks, comp, raw, ring_grads, ring32
+    return {"launches": launches, "numbers": numbers,
+            "ckpt": workdir / "ckpt_2"}
+
+
+def phase_reshard(top, ckpt_dir: Path, workdir: Path) -> None:
+    """[reshard]: ``plan_reshard`` of a pod join on the port's planner,
+    then in a one-rank process group ``reshard_state`` of the 2-pod run's
+    trained state onto ``make_mesh_for(1, 1, 1)`` on the card, and that
+    checkpoint restored with ``shardings=`` onto the mesh: every leaf's
+    full tensor equal to the saved one."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.elastic import plan_reshard, reshard_state
+    from repro_torch.models.model import param_logical, param_shape_dtypes
+    from repro_torch.sharding.specs import ShardingRules, shardings_for
+    from repro_torch.train import opt_state_logical
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = train_cfg()
+    t0 = time.perf_counter()
+    plan = plan_reshard(cfg, top, list(POD_REGIONS[:2]),
+                        list(POD_REGIONS[:3]))
+    plan_s = time.perf_counter() - t0
+    check(plan.new_pods == 3 and len(plan.moves) == 1
+          and plan.moves[0][1] == POD_REGIONS[2] and plan.total_cost > 0,
+          f"[reshard] pod join plan: {plan}")
+    mgr = CheckpointManager(ckpt_dir)
+    # shapes and the card for every leaf: the checkpoint fills them
+    shells = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device="cuda"),
+                      param_shape_dtypes(cfg))
+    like = {"params": shells, "opt": {
+        "m": shells, "v": shells,
+        "step": torch.zeros((), dtype=torch.int32, device="cuda")}}
+    state, step, _ = mgr.restore(like)
+    check(step == PODRING_STEPS, f"[reshard] restored step {step}")
+    rdv = workdir / "reshard_rendezvous"
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{rdv}",
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh, new = reshard_state(cfg, state, new_pods=1, data=1, model=1)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        placed = dict(leaves(new))
+        want = dict(leaves(state))
+        check(placed.keys() == want.keys(), "[reshard] leaves differ")
+        for k, t in placed.items():
+            full = t.full_tensor() if hasattr(t, "full_tensor") else t
+            check(torch.equal(full, want[k]),
+                  f"[reshard] {k} differs after reshard_state")
+        logical = {"params": param_logical(cfg),
+                   "opt": opt_state_logical(param_logical(cfg))}
+        shd = shardings_for(mesh, ShardingRules(), logical, state)
+        t0 = time.perf_counter()
+        restored, rstep, _ = mgr.restore(state, shardings=shd)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for k, t in leaves(restored):
+            check(torch.equal(t.full_tensor(), want[k]),
+                  f"[reshard] {k} differs after restore(shardings=)")
+        say("reshard", plan_s=plan_s, old_pods=plan.old_pods,
+            new_pods=plan.new_pods, moves=plan.moves, total_gb=plan.total_gb,
+            total_cost=plan.total_cost, est_time_s=plan.est_time_s,
+            mesh=[list(mesh.mesh_dim_names), list(mesh.shape)],
+            leaves=len(placed), reshard_s=reshard_s, restore_s=restore_s,
+            restored_step=rstep, equal=True)
+    finally:
+        dist.destroy_process_group()
+    del state, like, shells, new, restored
+    torch.cuda.empty_cache()
+
+
+def podring_path(top, errs: dict) -> dict:
+    """The pod-ring phases, their files under a git-ignored directory of
+    the checkout, removed at the end; returns the quantize kernels'
+    launches on the pod ring."""
+    import shutil
+
+    workdir = ROOT / "_build" / "podring_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        ring = phase_podring(top, workdir, errs)
+        phase_reshard(top, ring["ckpt"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return ring["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers here")
@@ -2966,7 +3443,13 @@ def main(argv=None) -> int:
                                  "service": service_launches[k["name"]],
                                  "calibrated": cal_launches[k["name"]]}
     kernels += model_path(errs)
-    kernels += train_path(errs)
+    train = train_path(errs)
+    ring = podring_path(top, errs)
+    for k in train:
+        k["launches_by_path"] = {"train": k["launches"],
+                                 "podring": ring[k["name"]]}
+        k["launches"] += ring[k["name"]]
+    kernels += train
     line = {"kernels": kernels}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,10 @@ key order, recursively: the order of ``jax.tree_util.tree_flatten``. So
 a checkpoint written by either package loads in the other. The manifest's
 ``"treedef"`` describes the tree by its dotted leaf paths (the reference
 writes JAX's repr there); loading reads only the leaf count and shapes.
-Restore puts each leaf on the device of the matching leaf of ``like``.
+Restore puts each leaf on the device of the matching leaf of ``like``, or,
+given ``shardings`` (a tree of ``sharding.specs.NamedSharding``), places
+it on that sharding's mesh as a DTensor: a checkpoint taken on one mesh
+restores onto another (the elastic rescale path).
 A background thread makes saves async (training continues); ``wait()``
 drains it. ``CheckpointManager`` keeps the newest k checkpoints and finds
 the latest committed one at restart (fault-tolerance restore point).
@@ -80,23 +83,43 @@ def save_checkpoint(
     return final
 
 
-def load_checkpoint(path: str | Path, like, *, verify: bool = True):
-    """Load into the structure of ``like``, each leaf on the device of
-    ``like``'s leaf (the CPU where that is not a tensor). Returns (tree,
-    step, extra)."""
+def _place(arr: np.ndarray, like_leaf, shd):
+    """A loaded leaf on ``shd``'s mesh (a DTensor), or without ``shd`` on
+    the device of ``like_leaf`` (the CPU where that is not a tensor)."""
+    t = torch.from_numpy(arr)
+    if shd is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t.to(shd.mesh.device_type), shd.mesh,
+                                 shd.placements())
+    device = (like_leaf.device if isinstance(like_leaf, torch.Tensor)
+              else "cpu")
+    return t.to(device)
+
+
+def load_checkpoint(path: str | Path, like, *, shardings=None,
+                    verify: bool = True):
+    """Load into the structure of ``like``; reshard onto ``shardings`` if
+    given (module docstring). Every rank of the shardings' mesh must call
+    it. Returns (tree, step, extra)."""
     path = Path(path)
     if not (path / "COMMITTED").exists():
         raise FileNotFoundError(f"checkpoint {path} not committed")
     manifest = json.loads((path / "MANIFEST.json").read_text())
     leaves_like = tree_leaves(like)
+    shard_leaves = (tree_leaves(shardings) if shardings is not None
+                    else [None] * len(leaves_like))
     metas = manifest["leaves"]
     if len(metas) != len(leaves_like):
         raise ValueError(
             f"leaf count mismatch: ckpt {len(metas)} vs "
             f"model {len(leaves_like)}"
         )
+    if len(shard_leaves) != len(leaves_like):
+        raise ValueError(f"{len(shard_leaves)} shardings for "
+                         f"{len(leaves_like)} leaves")
     out = []
-    for meta, like_leaf in zip(metas, leaves_like):
+    for meta, like_leaf, shd in zip(metas, leaves_like, shard_leaves):
         fname = meta["file"]
         arr = np.load(path / fname)
         if verify and checksum(arr.tobytes()) != meta["crc"]:
@@ -104,9 +127,7 @@ def load_checkpoint(path: str | Path, like, *, verify: bool = True):
         want = tuple(getattr(like_leaf, "shape", arr.shape))
         if tuple(arr.shape) != want:
             raise ValueError(f"{fname}: shape {arr.shape}, want {want}")
-        device = (like_leaf.device if isinstance(like_leaf, torch.Tensor)
-                  else "cpu")
-        out.append(torch.from_numpy(arr).to(device))
+        out.append(_place(arr, like_leaf, shd))
     return tree_unflatten(like, out), manifest["step"], manifest["extra"]
 
 
@@ -157,13 +178,13 @@ class CheckpointManager:
     def latest(self) -> Path | None:
         return latest_checkpoint(self.directory)
 
-    def restore(self, like):
+    def restore(self, like, *, shardings=None):
         """(tree, step, extra) from the newest committed checkpoint, or
         (None, 0, {}) when none exists."""
         path = self.latest()
         if path is None:
             return None, 0, {}
-        return load_checkpoint(path, like)
+        return load_checkpoint(path, like, shardings=shardings)
 
     def _gc(self):
         cands = sorted(

@@ -1,17 +1,98 @@
-"""Logical-axis sharding rules, single-device part.
+"""Logical-axis sharding rules (MaxText-style), the port of
+``repro/sharding/specs.py``.
 
-The port's copy of the ``ShardingRules`` dataclass of
-``repro/sharding/specs.py``, so a model function takes the same
-arguments as the reference's. The port runs on one device and sets no
-mesh, so ``shard_constraint`` returns its input, as the reference's does
-without a mesh (``specs.py:149-157``). Meshes, placements and the rest of
-that file are ROADMAP Queue 1 #11.
+Model code annotates tensors with *logical* axis names ("batch", "heads",
+"ff", ...). A ``ShardingRules`` instance maps each logical name to zero or
+more *mesh* axes. Changing the parallelism scheme means swapping rules,
+never touching model code.
+
+Default scheme:
+  batch   -> ("pod", "data")   pure DP over pods, batch-DP within a pod
+  fsdp    -> "data"            parameters fully sharded over the data axis
+  tp      -> "model"           tensor parallelism (heads / ff / vocab / experts)
+  seq     -> None              (context parallelism only for long-decode rules)
+
+torch has no ``PartitionSpec``: ``P`` is a tuple of the same entries (one
+per tensor dim: None, a mesh axis name, or a tuple of names), and
+``NamedSharding(mesh, spec).placements()`` turns it into DTensor
+placements, one ``Shard(dim)`` or ``Replicate()`` per mesh dimension. A
+mesh is anything with axis names and sizes: a
+``torch.distributed.device_mesh.DeviceMesh`` (``mesh_dim_names``,
+``shape``) or an object with ``axis_names`` and ``devices.shape`` as the
+reference's test meshes have (``mesh_axis_sizes`` reads both).
+
+Mesh plumbing: the launcher calls ``set_mesh(mesh)``; ``shard_constraint``
+then redistributes a DTensor to the spec's placements. A plain tensor
+passes unchanged (the pod ring's ranks run the models on plain local
+tensors), as does everything with no mesh set; the reference's
+constraint never changes values either.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import threading
+from typing import Any, Sequence
+
+_state = threading.local()
+
+
+def set_mesh(mesh) -> None:
+    _state.mesh = mesh
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a DeviceMesh or of a mesh with ``axis_names``
+    and ``devices.shape``, in the mesh's axis order."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dim, each None, a mesh axis
+    name, or a tuple of mesh axis names (sharded over their product)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh; ``placements()`` gives its DTensor placements."""
+
+    mesh: Any
+    spec: P
+
+    def placements(self) -> tuple:
+        """One placement per mesh axis: ``Shard(d)`` where tensor dim ``d``
+        names the axis, else ``Replicate()``. A dim sharded over several
+        axes lists them in mesh order (major first), which is how DTensor
+        splits a dim that several mesh dims shard."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = list(mesh_axis_sizes(self.mesh))
+        out = [Replicate() for _ in names]
+        for d, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            idx = [names.index(a) for a in axes]
+            if idx != sorted(idx):
+                raise ValueError(
+                    f"dim {d} sharded over {axes}, not in the mesh's "
+                    f"order {tuple(names)}"
+                )
+            for i in idx:
+                out[i] = Shard(d)
+        return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +127,125 @@ class ShardingRules:
             return ("pod",) + base
         return self.fsdp
 
+    def filter_for_mesh(self, mesh) -> "ShardingRules":
+        """Drop references to mesh axes that don't exist (e.g. 'pod' on the
+        single-pod mesh)."""
+        if mesh is None:
+            return self
+        names = set(mesh_axis_sizes(mesh))
+
+        def keep(v):
+            if v is None:
+                return None
+            if isinstance(v, tuple):
+                kept = tuple(a for a in v if a in names)
+                return kept if kept else None
+            return v if v in names else None
+
+        return dataclasses.replace(
+            self,
+            batch=keep(self.batch),
+            fsdp=keep(self.fsdp),
+            tp=keep(self.tp),
+            seq=keep(self.seq),
+            expert=keep(self.expert),
+            fsdp_pod=self.fsdp_pod and "pod" in names,
+        )
+
+
+def logical_to_physical(
+    rules: ShardingRules,
+    logical: Sequence[str | None],
+    shape: Sequence[int] | None = None,
+    mesh=None,
+) -> P:
+    """Resolve logical axes to a partition spec.
+
+    Shape-aware: a mesh axis (product) that does not evenly divide the dim is
+    dropped (the dim stays replicated), as the reference does for its jit
+    shardings; several pool archs have head counts that don't divide the
+    16-wide model axis (e.g. qwen2's 28 heads / 8 kv heads), and those dims
+    fall back to replication.
+    """
+    sizes = mesh_axis_sizes(mesh) if mesh is not None else {}
+    axes = []
+    used: set[str] = set()
+    for d, name in enumerate(logical):
+        ax = rules.resolve(name)
+        if ax is None:
+            axes.append(None)
+            continue
+        flat = ax if isinstance(ax, tuple) else (ax,)
+        flat = tuple(a for a in flat if a not in used)
+        if shape is not None and sizes:
+            prod = 1
+            for a in flat:
+                prod *= sizes.get(a, 1)
+            if prod == 0 or (prod and shape[d] % prod != 0):
+                # try dropping trailing axes until it divides
+                while flat:
+                    prod = 1
+                    for a in flat:
+                        prod *= sizes.get(a, 1)
+                    if prod and shape[d] % prod == 0:
+                        break
+                    flat = flat[:-1]
+                if not flat:
+                    axes.append(None)
+                    continue
+                prod = 1
+                for a in flat:
+                    prod *= sizes.get(a, 1)
+                if shape[d] % prod != 0:
+                    axes.append(None)
+                    continue
+        used.update(flat)
+        axes.append(flat if len(flat) > 1 else (flat[0] if flat else None))
+    return P(*axes)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
 
 def shard_constraint(x, rules: ShardingRules, *logical: str | None):
-    """No mesh on one device: ``x`` as it is."""
-    return x
+    """A DTensor redistributed to the logical spec's placements while a
+    mesh is set; anything else as it is."""
+    mesh = current_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    spec = logical_to_physical(
+        rules.filter_for_mesh(mesh), logical, shape=x.shape, mesh=mesh
+    )
+    return x.redistribute(x.device_mesh, NamedSharding(mesh, spec).placements())
+
+
+def make_param_shardings(mesh, rules: ShardingRules, abstract_tree):
+    """Tree of ParamDef -> tree of NamedSharding (shape-aware)."""
+    from repro_torch.models.params import tree_map_defs
+
+    rules = rules.filter_for_mesh(mesh)
+    return tree_map_defs(
+        lambda pd: NamedSharding(
+            mesh, logical_to_physical(rules, pd.logical, pd.shape, mesh)
+        ),
+        abstract_tree,
+    )
+
+
+def shardings_for(mesh, rules: ShardingRules, logical_tree, sds_tree):
+    """(logical tuples tree, tree of anything with a ``shape``) ->
+    NamedSharding tree. Trees are nested dicts; a logical tuple is a
+    leaf."""
+    from repro_torch.tree import tree_map
+
+    rules = rules.filter_for_mesh(mesh)
+    return tree_map(
+        lambda spec, sds: NamedSharding(
+            mesh, logical_to_physical(rules, spec, sds.shape, mesh)
+        ),
+        logical_tree,
+        sds_tree,
+    )

@@ -1,2 +1,7 @@
-from .optimizer import OptConfig, adamw_update, init_opt_state  # noqa: F401
+from .optimizer import (  # noqa: F401
+    OptConfig,
+    adamw_update,
+    init_opt_state,
+    opt_state_logical,
+)
 from .train_step import make_train_step  # noqa: F401

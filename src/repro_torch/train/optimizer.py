@@ -40,6 +40,10 @@ def init_opt_state(params) -> dict:
     }
 
 
+def opt_state_logical(param_logical) -> dict:
+    return {"m": param_logical, "v": param_logical, "step": ()}
+
+
 def schedule(cfg: OptConfig, step):
     """The learning rate at ``step`` (a 0-d tensor), as a 0-d f32 tensor."""
     step = step.to(torch.float32)

@@ -1,20 +1,55 @@
 """The training step: loss -> grads -> AdamW, with optional microbatched
-gradient accumulation and a pluggable gradient transform (the port of
-``repro/train/train_step.py::make_train_step``; the pod-ring step waits
-for the multi-device port).
+gradient accumulation and a pluggable gradient transform, and the pod-ring
+step, whose ranks average their gradients over the planner-ordered,
+optionally int8-compressed ring of ``repro_torch.transfer.collective``
+(the port of ``repro/train/train_step.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import loss_fn
-from repro_torch.sharding.specs import ShardingRules
+from repro_torch.sharding.specs import ShardingRules, mesh_axis_sizes
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .optimizer import OptConfig, adamw_update
+
+
+def _loss_with_cast(cfg: ModelConfig, rules: ShardingRules):
+    """loss_fn(cfg, rules, params, batch), the parameters cast to the
+    compute dtype first when ``cfg.cast_params_once``."""
+    dt = getattr(torch, cfg.dtype)
+
+    def lw(p, b):
+        if cfg.cast_params_once:
+            # cast the whole tree to the compute dtype up front; the cast
+            # is linear, so grads flow back to the f32 masters unchanged
+            p = tree_map(
+                lambda t: t.to(dt) if t.dtype == torch.float32 else t, p
+            )
+        return loss_fn(cfg, rules, p, b)
+
+    return lw
+
+
+def _batch_size(batch) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def _value_and_grad(lw, params, batch):
+    """(loss, metrics, grads) of one backward pass, detached."""
+    # leaves that share the parameters' storage and collect grads
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, metrics = lw(tree_unflatten(params, live), batch)
+    loss.backward()
+    grads = tree_unflatten(params, [t.grad for t in live])
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(
@@ -31,28 +66,16 @@ def make_train_step(
     grad_transform: optional hook applied to the f32 grad tree before the
     optimizer (e.g. int8 compression, ``transfer.compression.compress``).
     """
-    dt = getattr(torch, cfg.dtype)
-
-    def lw(p, b):
-        if cfg.cast_params_once:
-            # cast the whole tree to the compute dtype up front; the cast
-            # is linear, so grads flow back to the f32 masters unchanged
-            p = tree_map(
-                lambda t: t.to(dt) if t.dtype == torch.float32 else t, p
-            )
-        return loss_fn(cfg, rules, p, b)
+    lw = _loss_with_cast(cfg, rules)
 
     def compute_grads(params, batch):
+        if microbatches == 1:
+            loss, metrics, grads = _value_and_grad(lw, params, batch)
+            return grads, loss, metrics
         # leaves that share the parameters' storage and collect grads
         live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         p = tree_unflatten(params, live)
-        if microbatches == 1:
-            loss, metrics = lw(p, batch)
-            loss.backward()
-            grads = tree_unflatten(params, [t.grad for t in live])
-            return grads, loss.detach(), {
-                k: v.detach() for k, v in metrics.items()}
-        b = next(iter(batch.values())).shape[0]
+        b = _batch_size(batch)
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into {microbatches}")
         mb = b // microbatches
@@ -80,3 +103,69 @@ def make_train_step(
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_podring_train_step(
+    cfg: ModelConfig,
+    rules: ShardingRules,
+    opt_cfg: OptConfig,
+    mesh,
+    *,
+    compress_wire: bool = True,
+    pod_tput=None,
+):
+    """Inter-pod DP with an explicit, planner-ordered, optionally int8-
+    compressed ring all-reduce (the paper's egress-volume lever applied to
+    gradients on the inter-pod links).
+
+    One rank per pod of ``mesh`` (a DeviceMesh with a "pod" axis) runs
+    step(params, opt_state, batch) -> (params, opt_state, metrics) on the
+    same global batch: it takes its ``P("pod")`` shard, rows ``[p b / n,
+    (p + 1) b / n)`` for its index ``p`` along the pod axis, computes the
+    loss and gradients as ``make_train_step`` does, averages the gradients
+    over the ring (int8 + scales on the wire when ``compress_wire``), and
+    runs AdamW on its replica of the parameters and moments, in place.
+    ``metrics["loss"]`` is the pod mean."""
+    from repro_torch.transfer import collective
+
+    sizes = mesh_axis_sizes(mesh)
+    if "pod" not in sizes:
+        raise ValueError(f"no pod axis in the mesh {tuple(sizes)}")
+    n_pods = sizes["pod"]
+    order = collective.choose_ring_order(
+        pod_tput if pod_tput is not None else np.ones((n_pods, n_pods))
+    )
+    group = mesh.get_group("pod")
+    # inside one pod, batch parallelism only spans 'data'
+    lw = _loss_with_cast(cfg, dataclasses.replace(rules, batch="data"))
+
+    def step(params, opt_state, batch):
+        b = _batch_size(batch)
+        if b % n_pods:
+            raise ValueError(f"batch {b} does not split over {n_pods} pods")
+        p, rows = dist.get_rank(group), b // n_pods
+        local = {k: v[p * rows:(p + 1) * rows] for k, v in batch.items()}
+        loss, metrics, grads = _value_and_grad(lw, params, local)
+        grads = collective.ring_allreduce_tree(
+            grads, group, order, compress_wire=compress_wire, mean=True
+        )
+        params, opt_state, opt_metrics = adamw_update(
+            grads, params, opt_state, opt_cfg
+        )
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        metrics["loss"] = _pod_mean(loss, group, n_pods)
+        return params, opt_state, metrics
+
+    return step
+
+
+def _pod_mean(x, group, n: int):
+    """The mean of a 0-d tensor over ``group``: an all-reduce sum (through
+    host memory on gloo), then ``mean_of_sum``."""
+    from repro_torch.transfer import collective
+
+    wire = "cpu" if dist.get_backend(group) == "gloo" else x.device
+    total = x.to(wire, copy=True)
+    dist.all_reduce(total, group=group)
+    return collective.mean_of_sum(total.to(x.device), n)

@@ -1,9 +1,9 @@
 """The port's public names are the reference package's.
 
-``__all__`` of ``transfer``, ``calibrate``, ``core``, ``obs``, ``ckpt``
-and ``models`` equals the reference's (``ckpt`` and ``models`` have no
-``__all__`` there: their public names are what their ``__init__``
-imports). The only names left out are
+``__all__`` of ``transfer``, ``calibrate``, ``core``, ``obs``, ``ckpt``,
+``models``, ``sharding`` and ``analysis`` equals the reference's
+(``ckpt``, ``models`` and ``sharding`` have no ``__all__`` there: their
+public names are what their ``__init__`` imports). The only names left out are
 listed below, so that the slice that ports them removes them from the
 list.
 """
@@ -22,7 +22,8 @@ NOT_PORTED_YET: dict[str, set] = {}
 # the reference's deprecated per-engine shims: the port reaches every
 # engine through simulate(engine=...) and does not copy them
 NOT_COPIED = {"transfer": {"simulate_multi", "simulate_multi_reference"}}
-PACKAGES = ("transfer", "calibrate", "core", "obs", "ckpt", "models")
+PACKAGES = ("transfer", "calibrate", "core", "obs", "ckpt", "models",
+            "sharding", "analysis")
 
 
 def _public(mod) -> set:

@@ -50,6 +50,7 @@ from test_torch_executor import (  # noqa: F401  (x64_shim is a fixture)
     service_record,
     x64_shim,
 )
+from test_torch_cases import one_thread  # noqa: F401
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 MC_SRC, MC_DSTS = "gcp:us-central1", ["gcp:europe-west1", "gcp:europe-west3"]
@@ -59,17 +60,6 @@ MC_SRC, MC_DSTS = "gcp:us-central1", ["gcp:europe-west1", "gcp:europe-west3"]
 def tops():
     return {"ref": ref_core.default_topology(),
             "port": port_core.default_topology()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One BLAS, OpenMP and intra-op thread while this module runs: the
-    suite runs in several worker processes at once, and these small solves
-    gain nothing from more threads."""
-    from threadpoolctl import threadpool_limits
-
-    with threadpool_limits(limits=1):
-        yield
 
 
 def _api(side, pairing, engine, tops):

@@ -2,11 +2,30 @@
 that hold the plain versions against the reference, and the ``gpu`` tests
 that hold the CUDA kernels against the plain versions (which import no
 jax, so they run on a card's machine without it). The sim scenarios are
-built with the port alone for the same reason."""
+built with the port alone for the same reason. ``one_thread`` is the
+fixture a test file imports to run its tests on one CPU thread."""
 
 from __future__ import annotations
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One BLAS, OpenMP and intra-op thread while the importing module
+    runs: the suite runs in several worker processes at once, and torch's
+    and numpy's thread pools, each as wide as the host, would otherwise
+    contend for its cores (most of these tests run many small ops, which
+    gain nothing from more threads)."""
+    import torch
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(n)
 
 
 def waterfill_case(seed, *, with_edges):

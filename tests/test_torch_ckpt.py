@@ -32,6 +32,7 @@ from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.train import init_opt_state
 from repro_torch.tree import tree_leaves
+from test_torch_cases import one_thread  # noqa: F401
 
 
 def _j_state():

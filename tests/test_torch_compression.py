@@ -26,6 +26,7 @@ from repro.transfer import compression as jc
 from repro_torch.transfer import compression as tc
 
 from test_torch_cases import quantize_inputs
+from test_torch_cases import one_thread  # noqa: F401
 
 
 def _grads(seed: int) -> dict:

@@ -14,6 +14,7 @@ from repro_torch import convert
 from repro_torch.core import MulticastPlan, Topology, TransferPlan
 from repro_torch.core import grid_fingerprint
 from repro_torch.transfer import events as port_events
+from test_torch_cases import one_thread  # noqa: F401
 
 _GRIDS = ("tput", "price_egress", "price_vm", "limit_ingress", "limit_egress",
           "rtt_ms")

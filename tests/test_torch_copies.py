@@ -25,6 +25,7 @@ from repro_torch.core import default_topology as port_default
 from repro_torch.core import ron_plan as port_ron_plan
 from repro_torch.obs import export as port_export
 from repro_torch.obs.__main__ import trace_chaos_scenario
+from test_torch_cases import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH_MODULES = sorted(

@@ -54,6 +54,7 @@ from repro_torch.transfer import (
 
 from test_torch_sim import SCENARIOS as ENGINE_SCENARIOS
 from test_torch_sim import _scenario as engine_scenario
+from test_torch_cases import one_thread  # noqa: F401
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "gcp:us-central1"

@@ -46,6 +46,7 @@ import repro_torch.transfer as port_transfer
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import service_record  # noqa: E402
+from test_torch_cases import one_thread  # noqa: E402,F401
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "gcp:us-central1"
@@ -311,12 +312,24 @@ def assert_same(got, want, rtol=0.0, path="report"):
         assert got == want, f"{path}: {got!r} != {want!r}"
 
 
+# (scenario, pairing, engine) -> the port's (service, report): each run
+# once per module, shared by the comparisons and the path checks below
+_PORT_RUNS: dict = {}
+
+
+def _port_run(name, pairing, engine, tops):
+    key = (name, pairing, engine)
+    if key not in _PORT_RUNS:
+        _PORT_RUNS[key] = SCENARIOS[name](_api("port", pairing, engine, tops))
+    return _PORT_RUNS[key]
+
+
 def _compare(name, pairing, tops):
     scenario = SCENARIOS[name]
     want = service_record(*scenario(_api("ref", pairing, None, tops)))
     rtol = 0.0 if pairing == "numpy" else TORCH_JAX_RTOL
     for engine in ("soa", "torch"):
-        got = service_record(*scenario(_api("port", pairing, engine, tops)))
+        got = service_record(*_port_run(name, pairing, engine, tops))
         assert_same(got, want, rtol)
     return want
 
@@ -336,7 +349,7 @@ def test_scenarios_exercise_their_paths(tops):
     """What the reference's tests assert of these scenarios holds on the
     port's torch engine, so the equalities above are not vacuous."""
     def run(name):
-        return SCENARIOS[name](_api("port", "numpy", "torch", tops))
+        return _port_run(name, "numpy", "torch", tops)
 
     _, rep = run("backoff_ladder")
     rec = rep.jobs[0].replans[0]

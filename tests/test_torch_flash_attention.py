@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.obs.metrics import REGISTRY
 
 from test_torch_cases import qkv
+from test_torch_cases import one_thread  # noqa: F401
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

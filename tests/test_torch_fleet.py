@@ -38,6 +38,7 @@ from test_torch_executor import (  # noqa: F401  (x64_shim is a fixture)
     assert_same,
     x64_shim,
 )
+from test_torch_cases import one_thread  # noqa: F401
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "azure:canadacentral"
@@ -48,17 +49,6 @@ SVC_KW = dict(max_relays=6, check_interval_s=8.0, max_segments=40)
 def tops():
     return {"ref": ref_core.default_topology(),
             "port": port_core.default_topology()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One BLAS, OpenMP and intra-op thread while this module runs: the
-    suite runs in several worker processes at once, and these small solves
-    gain nothing from more threads."""
-    from threadpoolctl import threadpool_limits
-
-    with threadpool_limits(limits=1):
-        yield
 
 
 # ------------------------------------------------------- weighted max-min

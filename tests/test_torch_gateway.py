@@ -31,6 +31,7 @@ from repro.transfer.chunk import chunk_manifest
 from repro_torch import convert, models
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.transfer import gateway as port_gw
+from test_torch_cases import one_thread  # noqa: F401
 
 MC_SRC = "gcp:us-central1"
 MC_DSTS = ("gcp:europe-west1", "gcp:europe-west3", "gcp:europe-west4")

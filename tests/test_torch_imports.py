@@ -75,6 +75,17 @@ def test_transfer_plane_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
 
+@pytest.mark.parametrize("module", [
+    "sharding/__init__.py", "launch/mesh.py", "launch/elastic.py",
+    "launch/ranks.py", "transfer/collective.py", "analysis/__init__.py",
+    "analysis/__main__.py", "analysis/engine.py", "analysis/rules.py",
+])
+def test_multi_device_modules_are_checked(module):
+    """The multi-device layer's and skylint's modules are among the files
+    checked below."""
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]

@@ -22,6 +22,7 @@ from repro_torch.core import toy_topology as port_toy
 from repro_torch.core.solver import ipm_batch as port_batch
 from repro_torch.core.solver.ipm_torch import _bucket
 from repro_torch.core.solver.ipm_torch import solve_lp_batched as torch_batched
+from test_torch_cases import one_thread  # noqa: F401
 
 _SHIMMED = ("repro.core.solver.ipm_jax", "repro.transfer.flowsim_jax")
 

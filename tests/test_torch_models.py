@@ -49,25 +49,13 @@ from repro_torch.models.attention import attend, causal_mask
 from repro_torch.models import moe
 from repro_torch.models.model import decode_state_logical
 from repro_torch.sharding.specs import ShardingRules
+from test_torch_cases import one_thread  # noqa: F401
 
 J_RULES = JRules(batch=None, fsdp=None, tp=None)
 RULES = ShardingRules(batch=None, fsdp=None, tp=None)
 ARCH_NAMES = sorted(ARCHS)
 B, S, T_MAX = 2, 40, 48  # S off the SSD chunk grid (16): the pad path
 TOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One BLAS, OpenMP and intra-op thread while this module runs: the
-    suite runs in several worker processes at once."""
-    from threadpoolctl import threadpool_limits
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch: str, use_pallas: bool, dtype: str = "float32"):

@@ -41,6 +41,7 @@ from repro_torch.configs import MoEConfig as TMoEConfig
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models import moe
 from repro_torch.sharding.specs import ShardingRules
+from test_torch_cases import one_thread  # noqa: F401
 
 J_RULES = JRules(batch=None, fsdp=None, tp=None)
 RULES = ShardingRules(batch=None, fsdp=None, tp=None)
@@ -48,19 +49,6 @@ B, S = 2, 32
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NEAR_TIE = 1e-5  # relative gap between the k-th and (k+1)-th probability
 MAX_TIES = 0.01  # share of tokens that near-ties may exclude
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One BLAS, OpenMP and intra-op thread while this module runs: the
-    suite runs in several worker processes at once."""
-    from threadpoolctl import threadpool_limits
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(dtype: str, cf: float, shard: bool, psum: bool):

@@ -25,6 +25,7 @@ from repro.core import toy_topology as ref_toy
 from repro_torch.core import Planner, PlanSpec, default_topology, milp
 from repro_torch.core import grid_fingerprint, toy_topology
 from repro_torch.obs.metrics import REGISTRY
+from test_torch_cases import one_thread  # noqa: F401
 
 SRC, DST = "aws:us-east-1", "aws:ap-southeast-2"
 VOLUME = 640.0

@@ -33,6 +33,7 @@ from repro_torch.kernels.quantize import ops, ref
 from repro_torch.obs.metrics import REGISTRY
 
 from test_torch_cases import quantize_inputs
+from test_torch_cases import one_thread  # noqa: F401
 
 
 def _port(x: np.ndarray, block: int):

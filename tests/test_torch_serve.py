@@ -30,6 +30,7 @@ from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.launch import serve
 from repro_torch.serve import make_prefill_step, make_serve_step
+from test_torch_cases import one_thread  # noqa: F401
 
 STEPS, B, S = 8, 2, 24
 

@@ -41,6 +41,7 @@ from repro_torch.transfer import flowsim_torch, simulate
 from repro_torch.transfer.flowsim_torch import simulate_multi_torch
 
 from test_torch_cases import SIM_SCENARIOS, fleet_jobs, sim_scenario
+from test_torch_cases import one_thread  # noqa: F401
 
 SRC, DST = "aws:us-west-2", "aws:eu-central-1"
 SRC2 = "gcp:us-central1"

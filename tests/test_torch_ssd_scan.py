@@ -25,6 +25,7 @@ from repro_torch.kernels.ssd_scan import ops, ref
 from repro_torch.obs.metrics import REGISTRY
 
 from test_torch_cases import ssd_inputs
+from test_torch_cases import one_thread  # noqa: F401
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -66,6 +66,7 @@ from repro_torch.transfer.compression import compress
 from repro_torch.tree import tree_leaves, tree_map
 
 from test_torch_cases import qkv, ssd_inputs
+from test_torch_cases import one_thread  # noqa: F401
 
 J_RULES = JRules(batch=None, fsdp=None, tp=None)
 RULES = ShardingRules(batch=None, fsdp=None, tp=None)

@@ -34,6 +34,7 @@ from test_torch_cases import (
     waterfill_chain_case,
 )
 from test_torch_cases import waterfill_case as _case
+from test_torch_cases import one_thread  # noqa: F401
 
 
 def _port_rates(case, precision, **kw):

@@ -48,6 +48,7 @@ from repro_torch.launch import inputs, serve
 from repro_torch.sharding.specs import ShardingRules
 from repro_torch.train import OptConfig, init_opt_state, make_train_step
 from repro_torch.tree import tree_map
+from test_torch_cases import one_thread  # noqa: F401
 
 J_RULES = JRules(batch=None, fsdp=None, tp=None)
 RULES = ShardingRules(batch=None, fsdp=None, tp=None)
@@ -55,19 +56,6 @@ ZOO = ["llama-3.2-vision-11b", "mixtral-8x22b", "qwen3-moe-30b-a3b",
        "seamless-m4t-medium"]
 B, S, CHUNK = 2, 32, 16
 STEPS = 20  # decode steps from a fresh state: past Mixtral's window of 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One BLAS, OpenMP and intra-op thread while this module runs: the
-    suite runs in several worker processes at once."""
-    from threadpoolctl import threadpool_limits
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch: str, **kw):
