@@ -59,10 +59,16 @@ the wire (the quantize kernels, their launches counted in the ranks
 from 0) and 3 raw, the ring ordered by the planner's throughput between
 four pod regions; then ``[reshard]``: a pod join priced on the port's
 planner, and the 2-pod run's trained state resharded and its checkpoint
-restored onto a one-rank mesh on the card. Each phase prints one
-line; the line before the last lists every kernel with its launches on
-the main paths, its error against its plain version, its time and its
-bound; the last line is the device summary. Any failed
+restored onto a one-rank mesh on the card. The sharded model stack comes
+last (``[sharded]``, the flash launches counted from 0): the same
+smollm-135m with every parameter and moment a DTensor on a one-rank
+("data", "model") = (1, 1) mesh over ``cpu:gloo,cuda:nccl``, 3 steps
+against 3 plain steps, and a 4 x 2048 prefill through the flash
+kernel under the mesh with 8 greedy decode steps against the plain
+serve. Each phase prints one line; the line before the last lists
+every kernel with its launches on the main paths, its error against
+its plain version, its time and its bound; the last line is the device
+summary. Any failed
 check raises, and the script then exits non-zero without the summary. It
 exits non-zero at once where there is no CUDA card.
 """
@@ -175,12 +181,14 @@ SSD_CASES = {
 }
 # the shapes the zoo's serving phases give the flash kernel: qwen3-moe-30b-a3b
 # and llama-3.2-vision-11b (GQA 32:4 and 32:8 at D 128) at 4 x 4096,
-# seamless-m4t-medium's decoder (16 heads of 64) at 4 x 1024; held against
-# the plain version in [flash], not timed
+# seamless-m4t-medium's decoder (16 heads of 64) at 4 x 1024, and
+# [sharded]'s smollm-135m (GQA 9:3 at D 64) at 4 x 2048; held against the
+# plain version in [flash], not timed
 ZOO_FLASH_CASES = {
     "qwen3_moe": dict(b=4, s=4096, h=32, kv=4, d=128, window=None),
     "llama_vision": dict(b=4, s=4096, h=32, kv=8, d=128, window=None),
     "seamless": dict(b=4, s=1024, h=16, kv=16, d=64, window=None),
+    "smollm": dict(b=4, s=2048, h=9, kv=3, d=64, window=None),
 }
 # the tolerances of tests/test_kernels.py:45,84
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -3358,6 +3366,226 @@ def podring_path(top, errs: dict) -> dict:
     return ring["launches"]
 
 
+# ---------------------------------------------------------- sharded path
+SHARDED_STEPS, SHARDED_SERVE_B, SHARDED_DECODE = 3, 4, 8
+FLASH_COUNTERS = {"flash_attention": "kernels.flash_attention.launches",
+                  "flash_wgmma": "kernels.flash_attention.wgmma_launches"}
+
+
+def sharded_inputs(cfg) -> dict:
+    """[sharded]'s seeded batches (the token pipeline's) and prompts."""
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+
+    pipe = ShardedTokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                seed=11)
+    rng = np.random.default_rng(12)
+    return {"batches": [next(pipe) for _ in range(SHARDED_STEPS)],
+            "prompts": rng.integers(0, cfg.vocab_size,
+                                    (SHARDED_SERVE_B, TRAIN_S),
+                                    dtype=np.int32)}
+
+
+def sharded_runs(inputs: dict, cfg) -> dict:
+    """[sharded]'s runs in a one-rank process group: ``cfg`` (smollm-135m
+    at full width and depth, bf16) on DTensor parameters over the (1, 1)
+    ("data", "model") mesh, trained SHARDED_STEPS steps, then served (a
+    flash-kernel prefill and SHARDED_DECODE greedy steps); then the same
+    on plain tensors for the comparisons."""
+    from repro_torch import convert
+    from repro_torch.launch.inputs import decode_logical, train_batch_logical
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.model import abstract_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.sharding.specs import (ShardingRules, device_put,
+                                            is_dtensor, make_param_shardings,
+                                            set_mesh, shardings_for)
+    from repro_torch.train import init_opt_state, make_train_step
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh_for(1, 1, 1)
+    rules = ShardingRules(batch=("data",), fsdp="data", tp="model")
+
+    def fresh(cfg):
+        return init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    def place(tree, logical):
+        return device_put(tree, shardings_for(mesh, rules, logical, tree))
+
+    def full(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    def train(cfg, sharded: bool, steps: int) -> dict:
+        params = fresh(cfg)
+        batches = [convert.batch_from_numpy(b, "cuda")
+                   for b in inputs["batches"][:steps]]
+        if sharded:
+            params = device_put(params, make_param_shardings(
+                mesh, rules, abstract_params(cfg)))
+            batches = [place(b, train_batch_logical(cfg)) for b in batches]
+        opt = init_opt_state(params)
+        step = make_train_step(cfg, rules, train_opt(SHARDED_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        run = {"losses": [], "step_s": []}
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            run["step_s"].append(time.perf_counter() - t0)
+            run["losses"].append(float(full(m["loss"])))
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if sharded:
+            run["on_mesh"] = all(is_dtensor(t) for _, t in leaves(params))
+            run["moments_placed"] = all(
+                is_dtensor(m) and m.placements == p.placements
+                for (_, p), (_, m) in zip(leaves(params), leaves(opt["m"])))
+        run["params"] = {k: full(t) for k, t in leaves(params)}
+        return run
+
+    def serve(cfg, sharded: bool) -> dict:
+        params = fresh(cfg)
+        batch = convert.batch_from_numpy({"tokens": inputs["prompts"]},
+                                         "cuda")
+        if sharded:
+            params = device_put(params, make_param_shardings(
+                mesh, rules, abstract_params(cfg)))
+            batch = place(batch, {"tokens": ("batch", "seq")})
+        for c in FLASH_COUNTERS.values():
+            REGISTRY.counter(c).reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logits = prefill(
+            cfg, rules, params, batch,
+            t_max=inputs["prompts"].shape[1] + SHARDED_DECODE)
+        torch.cuda.synchronize()
+        out = {"prefill_s": time.perf_counter() - t0,
+               "launches": {k: int(REGISTRY.counter(c).value)
+                            for k, c in FLASH_COUNTERS.items()}}
+        if sharded:
+            state = place(state, decode_logical(cfg))
+        step = make_serve_step(cfg, rules)
+        tok = torch.argmax(full(logits), -1).to(torch.int32)[:, None]
+        if sharded:
+            tok = place({"t": tok}, {"t": ("batch", None)})["t"]
+        toks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_DECODE):
+            tok, state = step(params, state, tok)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+        out["decode_tok_s"] = SHARDED_SERVE_B * SHARDED_DECODE / out[
+            "decode_s"]
+        out["logits"] = full(logits).float().cpu()
+        out["tokens"] = torch.cat([full(t) for t in toks], 1).cpu()
+        return out
+
+    def gap(a: dict, b: dict) -> dict:
+        """{leaf: largest |a - b|, and that over the leaf's largest}"""
+        return {k: (float((a[k].float() - w.float()).abs().max()),
+                    float((a[k].float() - w.float()).abs().max()
+                          / w.float().abs().max().clamp_min(1e-30)))
+                for k, w in b.items()}
+
+    set_mesh(mesh)
+    out: dict = {"mesh": [list(mesh.mesh_dim_names), list(mesh.shape)]}
+    try:
+        run = train(cfg, True, SHARDED_STEPS)
+        ring = serve(dataclasses.replace(cfg, use_pallas=True), True)
+    finally:
+        set_mesh(None)
+    out["sharded_launches"] = ring["launches"]
+    plain = train(cfg, False, SHARDED_STEPS)
+    out["bf16_gap"] = gap(run.pop("params"), plain.pop("params"))
+    out["train"] = {"sharded": run, "plain": plain}
+    served = serve(dataclasses.replace(cfg, use_pallas=True), False)
+    out["serve"] = {"sharded": ring, "plain": served}
+    return out
+
+
+def phase_sharded(workdir: Path) -> dict:
+    """[sharded]: ``sharded_runs`` in this process on a one-rank
+    ``cpu:gloo,cuda:nccl`` group over the (1, 1) mesh (one card holds one
+    NCCL rank, and gloo's all-gather of CUDA tensors under DTensor kills
+    the rank on this card's torch). Checks: every parameter and moment a
+    DTensor on its placements; the sharded steps and serve equal the plain
+    ones bit for bit; the flash kernel launched under the mesh, on the
+    tensor cores. Returns the flash launches under the mesh."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg()
+    inputs = sharded_inputs(cfg)
+    rendezvous = workdir / "rendezvous"
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{rendezvous}", rank=0,
+                            world_size=1)
+    try:
+        lead = sharded_runs(inputs, cfg)
+    finally:
+        dist.destroy_process_group()
+    tr, sv = lead["train"], lead["serve"]
+    check(tr["sharded"]["on_mesh"] and tr["sharded"]["moments_placed"],
+          "[sharded] a parameter or moment is not a DTensor on its "
+          "placements")
+    bf16_gap = max(a for a, _ in lead["bf16_gap"].values())
+    logit_gap = float((sv["sharded"]["logits"] - sv["plain"]["logits"])
+                      .abs().max())
+    logit_max = float(sv["plain"]["logits"].abs().max())
+    same_tokens = float((sv["sharded"]["tokens"] == sv["plain"]["tokens"])
+                        .float().mean())
+    launches = lead["sharded_launches"]
+    check(launches["flash_attention"] > 0,
+          "[sharded] the flash kernel was not launched under the mesh")
+    check(launches["flash_wgmma"] == launches["flash_attention"],
+          "[sharded] a flash launch under the mesh left the tensor cores")
+    check(bf16_gap == 0.0 and tr["sharded"]["losses"] == tr["plain"][
+        "losses"], f"[sharded] the sharded steps differ from the plain ones "
+          f"by {bf16_gap}")
+    check(logit_gap == 0.0 and same_tokens == 1.0,
+          f"[sharded] the sharded serve differs from the plain one "
+          f"({logit_gap}, {same_tokens} of the tokens same)")
+    say("sharded", phase_s=time.perf_counter() - t_phase, card=card_line(),
+        ranks=1, mesh=lead["mesh"], arch=TRAIN_ARCH,
+        batch=[TRAIN_B, TRAIN_S], steps=SHARDED_STEPS,
+        losses={k: tr[k]["losses"] for k in tr},
+        step_s={k: tr[k]["step_s"] for k in tr},
+        step_s_median_after_first={
+            k: float(np.median(tr[k]["step_s"][1:])) for k in tr},
+        peak_gb={k: tr[k]["peak_gb"] for k in tr},
+        bf16_max_abs_gap=bf16_gap,
+        bf16_max_rel_gap=max(r for _, r in lead["bf16_gap"].values()),
+        serve_batch=[SHARDED_SERVE_B, TRAIN_S], decode_steps=SHARDED_DECODE,
+        prefill_s={k: sv[k]["prefill_s"] for k in sv},
+        decode_s={k: sv[k]["decode_s"] for k in sv},
+        decode_tok_s={k: sv[k]["decode_tok_s"] for k in sv},
+        prefill_logit_max_abs_gap=logit_gap, prefill_logit_max=logit_max,
+        same_greedy_tokens=same_tokens, flash_launches=launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_path() -> dict:
+    """[sharded] with its files under a git-ignored directory of the
+    checkout, removed at the end; returns its flash launches."""
+    import shutil
+
+    workdir = ROOT / "_build" / "sharded_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        return phase_sharded(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers here")
@@ -3450,6 +3678,12 @@ def main(argv=None) -> int:
                                  "podring": ring[k["name"]]}
         k["launches"] += ring[k["name"]]
     kernels += train
+    sharded = sharded_path()
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["launches"] += sharded["flash_attention"]
+            k["launches_by_path"]["sharded"] = sharded["flash_attention"]
+            k["wgmma_launches"] += sharded["flash_wgmma"]
     line = {"kernels": kernels}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -17,3 +19,11 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor spread over a mesh's devices),
+    without importing DTensor: none exists before
+    ``torch.distributed.tensor`` is imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.obs.metrics import REGISTRY
 
-from .. import aligned16, refuse_grad
+from .. import aligned16, refuse_dtensor, refuse_grad
 from ..nvcc import BASE_FLAGS, Library
 from . import ref
 
@@ -135,6 +135,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """q: [B,S,H,D], k/v: [B,S,Kv,D] -> [B,S,H,D] in q's type: the plain
     version on the CPU, the CUDA kernel on the card. Raises for inputs
     that require grad (module docstring)."""
+    refuse_dtensor("flash attention", q, k, v)
     refuse_grad("flash attention", q, k, v)
     if q.device.type == "cpu":
         fn = _plain
@@ -151,6 +152,7 @@ def flash_attention_on(kernel: str, q, k, v, *, causal: bool = True,
     """What ``flash_attention`` computes, by the named CUDA kernel
     (``"wgmma"`` or ``"vector"``) on card tensors, whatever ``kernel_for``
     would choose: to hold the two kernels against each other."""
+    refuse_dtensor("flash attention", q, k, v)
     refuse_grad("flash attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.obs.metrics import REGISTRY
 
+from .. import refuse_dtensor
 from ..nvcc import BASE_FLAGS, Library
 from . import ref
 
@@ -90,6 +91,7 @@ def quantize_int8(x, *, block: int = 256):
     """x: any shape and float type -> (q int8 [x.shape], scales f32
     [n_blocks]): the plain version on the CPU, the CUDA kernel on the
     card."""
+    refuse_dtensor("quantize", x)
     flat = x.reshape(-1).to(torch.float32).contiguous()
     _n_blocks(flat.shape[0], block)
     fn = _route(flat, _quant_kernel, ref.quantize_int8_flat)
@@ -99,6 +101,7 @@ def quantize_int8(x, *, block: int = 256):
 
 def dequantize_int8(q, scales, *, block: int = 256):
     """Inverse of ``quantize_int8``: f32 of q's shape."""
+    refuse_dtensor("dequantize", q, scales)
     if q.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError("q must be int8 and scales float32")
     flat = q.reshape(-1).contiguous()

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.obs.metrics import REGISTRY
 
-from .. import aligned16, refuse_grad
+from .. import aligned16, refuse_dtensor, refuse_grad
 from ..nvcc import BASE_FLAGS, Library
 from . import ref
 
@@ -153,6 +153,7 @@ def ssd_scan(xh, dtv, a, bm, cm, *, chunk: int = 256):
     -> (y [B,S,H,P] in x's type, final_state [B,H,P,N] f32): the plain
     version on the CPU, a CUDA kernel on the card (``kernel_for``). Raises
     for inputs that require grad (module docstring)."""
+    refuse_dtensor("SSD scan", xh, dtv, a, bm, cm)
     refuse_grad("SSD scan", xh, dtv, a, bm, cm)
     if xh.device.type == "cpu":
         fn = _plain
@@ -167,6 +168,7 @@ def ssd_scan_on(kernel: str, xh, dtv, a, bm, cm, *, chunk: int = 256):
     """What ``ssd_scan`` computes, by the named CUDA kernel (``"wgmma"`` or
     ``"vector"``) on card tensors, whatever ``kernel_for`` would choose: to
     hold the two kernels against each other."""
+    refuse_dtensor("SSD scan", xh, dtv, a, bm, cm)
     refuse_grad("SSD scan", xh, dtv, a, bm, cm)
     if xh.device.type != "cuda":
         raise ValueError(

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.obs.metrics import REGISTRY, Counter
 
+from .. import refuse_dtensor
 from . import ref
 
 _DTYPES = {"f64": torch.float64, "f32": torch.float32}
@@ -165,6 +166,8 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     it a solve past one block's shared memory raises. The CPU's plain
     version ignores it.
     """
+    refuse_dtensor("water-filling", caps, src, dst, eg_cap, in_cap, eid,
+                   ed_cap, active)
     if precision not in _DTYPES:
         raise ValueError(f"unknown precision {precision!r} (f64 or f32)")
     dtype = _DTYPES[precision]
@@ -260,6 +263,7 @@ def segment_sum_ordered(values, seg, n_segments: int, *,
     with ``seg[i] == s`` in ascending lane order, on any device.
     ``lists`` is ``csr(seg, n_segments)``, built once by callers that sum
     over the same map many times."""
+    refuse_dtensor("segment sum", values, seg)
     if values.device.type == "cpu":
         return ref.segment_sum_ordered(values, seg, n_segments)
     if values.device.type != "cuda":

@@ -9,10 +9,24 @@ reference.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.specs import ShardingRules, shard_constraint
+from repro_torch.sharding.specs import (
+    ShardingRules,
+    current_mesh,
+    is_dtensor,
+    kernel_split,
+    local_call,
+    mesh_axis_sizes,
+    replicate_like,
+    shard_constraint,
+    shards_of,
+    unshard,
+)
 from .layers import rope
 from .params import ParamDef
 
@@ -41,9 +55,83 @@ def attn_defs(
 
 
 # ------------------------------------------------------------------ core math
-def _scores_constraint(scores, rules: ShardingRules):
-    """No mesh on one device: the [B,H,Sq,Sk] buffer as it is."""
-    return scores
+def _scores_split(h: int, sq: int, rules: ShardingRules | None):
+    """The port of the reference's ``_scores_constraint``: how the
+    [B,H,Sq,Sk] score buffer is cut over the TP axis of the current mesh.
+    Heads are preferred; when the head count doesn't divide the axis
+    (qwen2: 28H, smollm: 9H), query rows, so that the O(S^2) buffer never
+    replicates. Returns (axis, "heads" or "rows"), or None (no mesh, no
+    TP axis, or neither dim divides)."""
+    mesh = current_mesh()
+    if mesh is None or rules is None:
+        return None
+    tp = rules.filter_for_mesh(mesh).tp
+    if tp is None:
+        return None
+    axis = tp if isinstance(tp, str) else tp[0]
+    size = mesh_axis_sizes(mesh).get(axis, 1)
+    if h % size == 0:
+        return axis, "heads"
+    if sq % size == 0:
+        return axis, "rows"
+    return None
+
+
+def _attend_local(q, k, v, mask, rules, fn):
+    """``fn(q, k, v, mask=mask)``, the plain attention, on DTensors as local
+    shards laid out as ``_scores_split`` cuts the score buffer:
+    batch rows keep their shards, and the TP axis cuts heads (where the kv
+    heads divide too, so that a shard holds whole GQA groups) or else query
+    rows (k and v whole there, the mask's rows cut alike); everything else
+    is gathered. DTensor's own einsums here flatten sharded dims, which its
+    view rules refuse."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, rep = q.device_mesh, Replicate()
+    b, sq, h, _ = q.shape
+    kvh = k.shape[2]
+    split = _scores_split(h, sq, rules)
+    tp_dim = (list(mesh.mesh_dim_names or ()).index(split[0])
+              if split is not None else None)
+    if mask is not None:
+        mask = replicate_like(mask, q)
+
+    def cut(d: int):  # the mask's dim d cut where it is not broadcast
+        return Shard(d) if mask is not None and mask.shape[d] > 1 else rep
+
+    roles = []  # per mesh axis: q, k and v, mask, out, k's and v's grads
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(pl, Shard) and pl.dim == 0:
+            roles.append((pl, pl, cut(0), pl, pl))
+        elif i == tp_dim and h % n == 0 and kvh % n == 0:
+            roles.append((Shard(2), Shard(2), cut(1), Shard(2), Shard(2)))
+        elif i == tp_dim and sq % n == 0:
+            roles.append((Shard(1), rep, cut(2), Shard(1), Partial()))
+        else:
+            roles.append((rep,) * 5)
+    qp, kp, mp, op, kg = zip(*roles)
+    return local_call(
+        lambda ql, kl, vl, ml: fn(ql, kl, vl, mask=ml), (q, k, v, mask),
+        (qp, kp, kp, None if mask is None else mp), op,
+        tuple(q.shape[:3]) + (v.shape[-1],), (qp, kg, kg, mp))
+
+
+def _flash(q, k, v, **kw):
+    """The flash kernel on q [B,S,H,D], k/v [B,S,Kv,D]. DTensors cross to
+    the kernel as local shards where ``kernel_split`` says a shard
+    computes the same function (batch rows, whole GQA groups of heads);
+    every other placement is gathered first."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    if not is_dtensor(q):
+        return flash_attention(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+
+    to = {"batch": Shard(0), "heads": Shard(2), None: Replicate()}
+    place = [to[r] for r in kernel_split(q, q.shape[2], k.shape[2])]
+    return local_call(functools.partial(flash_attention, **kw), (q, k, v),
+                      (place,) * 3, place, q.shape)
 
 
 def _gqa_scores(q, k, q_per_kv, acc_dtype=torch.float32):
@@ -69,7 +157,11 @@ def attend(q, k, v, *, q_per_kv: int, mask=None, scale: float,
            rules: ShardingRules | None = None, scores_bf16: bool = False):
     """Masked GQA attention. mask: broadcastable [B|1,H|1,Sq,Sk] with True =
     attend. scores_bf16: keep the O(S^2) score/weight buffers in bf16 (row
-    max in f32, sums in f32)."""
+    max in f32, sums in f32). DTensors attend as local shards
+    (``_attend_local``)."""
+    if is_dtensor(q):
+        return _attend_local(q, k, v, mask, rules, functools.partial(
+            attend, q_per_kv=q_per_kv, scale=scale, scores_bf16=scores_bf16))
     if scores_bf16:
         bf16 = torch.bfloat16
         scores = _gqa_scores(q, k, q_per_kv, acc_dtype=bf16)
@@ -83,8 +175,6 @@ def attend(q, k, v, *, q_per_kv: int, mask=None, scale: float,
         w = p / torch.clamp(denom, min=1e-20).to(bf16)
         return _gqa_combine(w, v, q_per_kv)
     scores = _gqa_scores(q, k, q_per_kv) * scale
-    if rules is not None:
-        scores = _scores_constraint(scores, rules)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
@@ -102,15 +192,90 @@ def causal_mask(sq: int, sk: int, *, window: int | None, q_offset=0,
     return m[None, None]
 
 
+def _local_product(eq: str, a, b, roles: list, shape: tuple):
+    """``einsum(eq, a, b)`` of two DTensors as a product of local shards.
+    ``roles`` holds, per mesh axis, the placements of a, b and the product,
+    then those of a's and b's gradients."""
+    ap, bp, yp, ag, bg = zip(*roles)
+    return local_call(functools.partial(torch.einsum, eq), (a, b), (ap, bp),
+                      yp, shape, (ag, bg))
+
+
+def _project(x, w):
+    """x [B,S,D] @ w [D,H,E] -> [B,S,H,E] (the einsum "bsd,dhe->bshe").
+    DTensors are multiplied as local shards, as Megatron's column-parallel
+    layer does: x keeps its batch and sequence shards, w its head shards
+    on the other mesh axes, and everything else is gathered (w's fsdp
+    shards too). DTensor's own einsum may shard the flattened H*E columns
+    of the product, in the forward or the backward pass, and then cannot
+    split them into heads that the shards cut."""
+    if not is_dtensor(x):
+        return torch.einsum("bsd,dhe->bshe", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rep, roles = Replicate(), []
+    for pl_x, pl_w in zip(x.placements, w.placements):
+        if isinstance(pl_x, Shard) and pl_x.dim in (0, 1):  # rows
+            roles.append((pl_x, rep, pl_x, pl_x, Partial()))
+        elif pl_w == Shard(1):  # heads
+            roles.append((rep, pl_w, Shard(2), Partial(), pl_w))
+        else:
+            roles.append((rep,) * 5)
+    return _local_product("bsd,dhe->bshe", x, w, roles,
+                          tuple(x.shape[:2]) + tuple(w.shape[1:]))
+
+
+def _unproject(o, w):
+    """o [B,S,H,E] @ w [H,E,D] -> [B,S,D] (the einsum "bshe,hed->bsd"),
+    for DTensors as local shards as ``_project`` does (row-parallel: o's
+    head shards meet w's, and their product is a partial sum)."""
+    if not is_dtensor(o):
+        return torch.einsum("bshe,hed->bsd", o, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rep, roles = Replicate(), []
+    whole_heads = o.shape[2] % shards_of(o, 2) == 0
+    for pl in o.placements:
+        if isinstance(pl, Shard) and pl.dim in (0, 1):  # rows
+            roles.append((pl, rep, pl, pl, Partial()))
+        elif pl == Shard(2) and whole_heads:
+            roles.append((pl, Shard(0), Partial(), pl, Shard(0)))
+        else:
+            roles.append((rep,) * 5)
+    return _local_product("bshe,hed->bsd", o, w, roles,
+                          tuple(o.shape[:2]) + (w.shape[-1],))
+
+
 # ----------------------------------------------------------------- full layer
 def _pad_seq(x, t_max: int):
     """[B,S,...] -> [B,t_max,...] zero-padded."""
     s = x.shape[1]
     if s == t_max:
         return x
-    out = x.new_zeros((x.shape[0], t_max) + tuple(x.shape[2:]))
-    out[:, :s] = x
-    return out
+    return F.pad(x, (0, 0) * (x.ndim - 2) + (0, t_max - s))
+
+
+def _write_slot(cache, slot, new) -> None:
+    """cache [B,T,Kv,Dh][:, slot] = new [B,1,Kv,Dh], in place. A DTensor
+    cache is written through its local shard, ``new`` first brought to
+    the cache's placements: the write is local wherever T is whole."""
+    idx = (unshard(slot).to_local() if is_dtensor(slot) else slot)
+    idx = idx.reshape(1).long()
+
+    def write(c, n):
+        return c.index_copy_(1, idx, n)
+
+    new = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        write(cache, new)
+        return
+    from torch.distributed.tensor import Shard
+
+    if any(isinstance(pl, Shard) and pl.dim == 1 for pl in cache.placements):
+        raise ValueError("decode writes a KV cache whose sequence dim is "
+                         "whole on every rank")
+    local_call(write, (cache, new), (cache.placements,) * 2,
+               cache.placements, cache.shape)
 
 
 def self_attention(
@@ -132,9 +297,9 @@ def self_attention(
     PLACE (no copy of the [B,T,Kv,Dh] buffers) and returns them."""
     dt = x.dtype
     dh = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhe->bshe", x, p["wv"].to(dt))
+    q = _project(x, p["wq"].to(dt))
+    k = _project(x, p["wk"].to(dt))
+    v = _project(x, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -147,11 +312,8 @@ def self_attention(
 
     if cache is None:
         if cfg.use_pallas and is_causal:
-            from repro_torch.kernels.flash_attention.ops import flash_attention
-
-            out = flash_attention(
-                q, k, v, causal=True, window=cfg.sliding_window, scale=scale
-            )
+            out = _flash(q, k, v, causal=True, window=cfg.sliding_window,
+                         scale=scale)
         else:
             mask = (
                 causal_mask(q.shape[1], k.shape[1], window=cfg.sliding_window,
@@ -172,19 +334,19 @@ def self_attention(
         # applied at write time, so ring order is immaterial.
         ck, cv = cache["k"], cache["v"]
         T = ck.shape[1]
-        seen = cache_len if seen_len is None else seen_len
-        slot = torch.as_tensor(cache_len, device=x.device).reshape(1).long()
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
-        ki = torch.arange(T, device=x.device)[None, :]
-        valid = ki <= torch.clamp(torch.as_tensor(seen, device=x.device),
-                                  max=T - 1)
+        seen = torch.as_tensor(cache_len if seen_len is None else seen_len,
+                               device=x.device)
+        slot = torch.as_tensor(cache_len, device=x.device)
+        _write_slot(ck, slot, k)
+        _write_slot(cv, slot, v)
+        ki = replicate_like(torch.arange(T, device=x.device)[None, :], seen)
+        valid = ki <= torch.clamp(seen, max=T - 1)
         mask = valid[None, None]  # [1,1,1(Sq),T]
         out = attend(q, ck, cv, q_per_kv=cfg.q_per_kv, mask=mask, scale=scale,
                      rules=rules, scores_bf16=cfg.attn_scores_bf16)
         new_cache = {"k": ck, "v": cv}
 
-    out = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+    out = _unproject(out, p["wo"].to(dt))
     out = shard_constraint(out, rules, "batch", "seq", None)
     return out, new_cache
 
@@ -196,12 +358,12 @@ def cross_attention(cfg: ModelConfig, rules: ShardingRules, p: dict, x,
     the reference: the flash kernel takes causal self-attention only."""
     dt = x.dtype
     dh = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhe->bshe", kv_src, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhe->bshe", kv_src, p["wv"].to(dt))
+    q = _project(x, p["wq"].to(dt))
+    k = _project(kv_src, p["wk"].to(dt))
+    v = _project(kv_src, p["wv"].to(dt))
     out = attend(q, k, v, q_per_kv=cfg.q_per_kv, mask=None, scale=dh ** -0.5,
                  rules=rules, scores_bf16=cfg.attn_scores_bf16)
-    out = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+    out = _unproject(out, p["wo"].to(dt))
     return shard_constraint(out, rules, "batch", "seq", None)
 
 

@@ -7,7 +7,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.specs import ShardingRules, shard_constraint
+from repro_torch.sharding.specs import (ShardingRules, replicate_like,
+                                     shard_constraint, unshard)
 from .params import ParamDef
 
 
@@ -62,9 +63,9 @@ def rope(x, positions, theta: float):
     x: [..., S, H, Dh], positions: [..., S]."""
     dh = x.shape[-1]
     half = dh // 2
-    freq = theta ** (
+    freq = replicate_like(theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    )
+    ), positions)
     angles = positions[..., :, None].float() * freq  # [..., S, half]
     angles = angles[..., :, None, :]  # broadcast over heads
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -86,7 +87,10 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def embed(cfg: ModelConfig, rules: ShardingRules, p: dict, tokens, dtype):
-    x = F.embedding(tokens.long(), p["tok"]).to(dtype)
+    # DTensor's lookup into a vocab-sharded table fails under a
+    # batch-sharded index (its masked partial sum); the table is gathered
+    # whole at its use, as FSDP gathers a weight
+    x = F.embedding(tokens.long(), unshard(p["tok"])).to(dtype)
     return shard_constraint(x, rules, "batch", "seq", None)
 
 

@@ -16,21 +16,26 @@ double them. The caller's state dict is left with the new caches and the
 returned state shares them.
 
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``: no
-gradient. ``forward`` and ``loss_fn`` record the autograd graph where the
-parameters require grad (training); with ``cfg.use_pallas`` they then
-raise, since the CUDA kernels have no backward (nor do the reference's
-Pallas kernels).
+gradient (``torch.no_grad()`` for DTensor parameters, which DTensor
+cannot view under inference mode). ``forward`` and ``loss_fn`` record
+the autograd graph where the parameters require grad (training); with
+``cfg.use_pallas`` they then raise, since the CUDA kernels have no
+backward (nor do the reference's Pallas kernels).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.sharding.specs import ShardingRules
-from repro_torch.tree import leaves
+from repro_torch.sharding.specs import (ShardingRules, is_dtensor,
+                                     replicate_like,
+                                     shard_constraint, unshard)
+from repro_torch.tree import leaves, tree_leaves
 from . import params as P
 from .layers import embed, embed_defs, rmsnorm, rmsnorm_def, unembed_matrix
 from .transformer import Aux, encoder_defs, encoder_stack, run_stack, stack_defs
@@ -86,7 +91,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 def _positions(tokens):
     s = tokens.shape[1]
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
-    return pos.expand(tokens.shape)
+    return replicate_like(pos, tokens).expand(tokens.shape)
 
 
 def _aux(cfg: ModelConfig, rules: ShardingRules, params, batch) -> Aux:
@@ -131,18 +136,36 @@ def loss_fn(cfg: ModelConfig, rules: ShardingRules, params, batch):
     # f32 products of activation-type values, as the reference's
     # preferred_element_type=float32
     w = unembed_matrix(cfg, params["embed"], h.dtype).float()
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    total = None
     for i in range(0, s, c):
         logits = h[:, i:i + c].float() @ w  # [B, c, V]
+        logits = shard_constraint(logits, rules, "batch", None, "tp")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, i:i + c, None])[..., 0]
-        total = total + torch.sum(lse - gold)
-    loss = total / (b * s)
+        # DTensor's gather along a sharded dim fails (its masked partial
+        # sum): the gold logit is read from the logits whole over the vocab
+        gold = torch.gather(unshard(logits, -1), -1,
+                            labels[:, i:i + c, None])[..., 0]
+        part = torch.sum(lse - gold)
+        total = part if total is None else total + part
+    loss = unshard(total) / (b * s)
     return loss, {"loss": loss,
                   "tokens": torch.tensor(b * s, dtype=torch.float32)}
 
 
 # ------------------------------------------------------------------ serving
+def _serving(fn):
+    """``fn(cfg, rules, params, ...)`` without autograd: under inference
+    mode, or under ``no_grad`` where a parameter is a DTensor (DTensor
+    cannot take a view of a parameter under inference mode)."""
+    @functools.wraps(fn)
+    def run(cfg, rules, params, *args, **kwargs):
+        sharded = any(is_dtensor(t) for t in tree_leaves(params))
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(cfg, rules, params, *args, **kwargs)
+
+    return run
+
+
 def _attn_cache_layers(cfg: ModelConfig) -> tuple[int, ...]:
     """Leading stack dims of the KV cache for this family."""
     groups, per = cfg.scan_groups()
@@ -229,7 +252,7 @@ def decode_state_logical(cfg: ModelConfig) -> dict:
     return spec
 
 
-@torch.inference_mode()
+@_serving
 def prefill(cfg: ModelConfig, rules: ShardingRules, params, batch, *,
             t_max: int | None = None):
     """Run the full prompt, build decode caches. Returns (state, last_logits)."""
@@ -253,7 +276,7 @@ def prefill(cfg: ModelConfig, rules: ShardingRules, params, batch, *,
     return state, last_logits
 
 
-@torch.inference_mode()
+@_serving
 def decode_step(cfg: ModelConfig, rules: ShardingRules, params, state,
                 tokens):
     """One decode step. tokens: [B, 1] -> (logits [B, V], new state); the

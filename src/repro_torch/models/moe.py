@@ -32,7 +32,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.specs import ShardingRules, shard_constraint
+from repro_torch.sharding.specs import (
+    ShardingRules,
+    current_mesh,
+    is_dtensor,
+    local_call,
+    mesh_axis_sizes,
+    shard_constraint,
+    shards_of,
+    unshard,
+)
 from .params import ParamDef
 
 _RECORD: contextvars.ContextVar = contextvars.ContextVar("moe_routing",
@@ -66,9 +75,19 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
 
 
 def _batch_shards(rules: ShardingRules) -> int:
-    """Shards along the logical batch axis: 1, as the reference counts
-    without a mesh (the port sets none)."""
-    return 1
+    """Number of shards along the logical batch axis on the current mesh
+    (``set_mesh``); 1 without one."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    ax = rules.filter_for_mesh(mesh).batch
+    if ax is None:
+        return 1
+    sizes = mesh_axis_sizes(mesh)
+    n = 1
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        n *= sizes.get(a, 1)
+    return max(n, 1)
 
 
 @contextlib.contextmanager
@@ -175,28 +194,58 @@ def _moe(cfg: ModelConfig, p: dict, xt, psum_combine: bool):
     return y
 
 
+def _moe_tokens(cfg: ModelConfig, p: dict, x, n_g: int,
+                psum_combine: bool):
+    """``_moe`` on x [B, S, D] cut into ``n_g`` groups of consecutive
+    tokens, back as [B, S, D]. Every group routes, sorts and places its
+    tokens on its own, so a DTensor runs on each rank's local rows where
+    the mesh axes that shard its batch dim hold one group each, and whole
+    on every rank otherwise. Its experts are gathered whole: DTensor has
+    no strategy for the sort, the searchsorted and the indexed scatter,
+    and GSPMD keeps the dispatch shard-local too. A weight's gradient is
+    then a partial sum over the mesh axes that shard the groups."""
+    b, s, d = x.shape
+    if not is_dtensor(x):
+        return _moe(cfg, p, x.reshape(n_g, b * s // n_g, d),
+                    psum_combine).reshape(b, s, d)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x = unshard(x, 1, 2)
+    shards = shards_of(x, 0)
+    if shards != n_g or b % n_g:
+        x, shards = unshard(x), 1
+    whole = [Replicate()] * x.device_mesh.ndim
+    grad = [Partial() if isinstance(pl, Shard) else Replicate()
+            for pl in x.placements]
+
+    def run(xl, *ws):
+        return _moe(cfg, dict(zip(p, ws)), xl.reshape(n_g // shards, -1, d),
+                    psum_combine).reshape(xl.shape)
+
+    return local_call(run, (x, *p.values()),
+                      (x.placements,) + (whole,) * len(p), x.placements,
+                      x.shape, (x.placements,) + (grad,) * len(p))
+
+
 def moe_mlp_sharded(cfg: ModelConfig, rules: ShardingRules, p: dict, x):
     """Shard-local dispatch: every data shard routes, sorts and places its
-    own tokens, with capacity per shard. On one device there is one shard,
-    so this computes what ``moe_mlp`` does, but for the combine that
-    ``cfg.moe_psum_combine`` selects (scatter from the expert slots, whose
-    owners the reference sets last-write-wins)."""
+    own tokens, with capacity per shard; the shards are the product of the
+    mesh axes that ``rules.batch`` names (``_batch_shards``), one without
+    a mesh, and then this computes what ``moe_mlp`` does, but for the
+    combine that ``cfg.moe_psum_combine`` selects (scatter from the expert
+    slots, whose owners the reference sets last-write-wins)."""
     b, s, d = x.shape
     t = b * s
     n_sh = _batch_shards(rules)
     if t % n_sh or (t // n_sh) < 1:
         n_sh = 1
-    xt = shard_constraint(x.reshape(n_sh, t // n_sh, d), rules, "batch",
-                          None, None)
-    y = _moe(cfg, p, xt, cfg.moe_psum_combine)
-    y = shard_constraint(y, rules, "batch", None, None)
-    return y.reshape(b, s, d)
+    y = _moe_tokens(cfg, p, x, n_sh, cfg.moe_psum_combine)
+    return shard_constraint(y, rules, "batch", None, None)
 
 
 def moe_mlp(cfg: ModelConfig, rules: ShardingRules, p: dict, x):
     """x: [B, S, D] -> [B, S, D]."""
     if cfg.moe_shard_dispatch:
         return moe_mlp_sharded(cfg, rules, p, x)
-    b, s, d = x.shape
-    y = _moe(cfg, p, x.reshape(1, b * s, d), False)
-    return shard_constraint(y.reshape(b, s, d), rules, "batch", None, None)
+    y = _moe_tokens(cfg, p, x, 1, False)
+    return shard_constraint(y, rules, "batch", None, None)

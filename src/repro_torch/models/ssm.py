@@ -12,11 +12,15 @@ state) cache. As in the reference, only the cache-free ``ssm_mixer``
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.specs import ShardingRules, shard_constraint
+from repro_torch.sharding.specs import (ShardingRules, is_dtensor,
+                                     kernel_split, local_call,
+                                     replicate_like, shard_constraint)
 from .layers import rmsnorm
 from .params import ParamDef
 
@@ -98,7 +102,8 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, *, rules=None):
     # diagonal the exponent is positive and may overflow
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [b,nc,i,j,H]
     ii = torch.arange(chunk, device=x.device)
-    mask = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    mask = replicate_like((ii[:, None] >= ii[None, :])[None, None, :, :, None],
+                          x)
     decay = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
     cb = torch.einsum("bcin,bcjn->bcij", Cr.to(f32), Br.to(f32))
     scores = cb[..., None] * decay * dtr[:, :, None, :, :]  # [b,nc,i,j,H]
@@ -114,7 +119,8 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, *, rules=None):
         "bcjh,bcjhp,bcjn->bchpn", w_end, xr.to(f32), Br.to(f32)
     )
     chunk_decay = torch.exp(seg_end[:, :, 0, :]).to(f32)  # [b,nc,H]
-    state = torch.zeros((b, H, P, N), dtype=f32, device=x.device)
+    state = replicate_like(torch.zeros((b, H, P, N), dtype=f32,
+                                       device=x.device), x)
     s_prevs = []
     for c in range(nc):
         s_prevs.append(state)
@@ -127,6 +133,31 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, *, rules=None):
     if pad:
         y = y[:, :S_orig]
     return y, state.to(x.dtype)
+
+
+def _ssd_kernel(xh, dtv, a, bm, cm, *, chunk: int):
+    """The SSD kernel on xh [B,S,H,P], dtv [B,S,H], a [H], bm/cm [B,S,N]
+    -> (y [B,S,H,P], state [B,H,P,N]). DTensors cross to the kernel as
+    local shards where ``kernel_split`` says a shard computes the same
+    function, as the flash kernel's do (B and C are shared by every head,
+    so whole on a head shard); every other placement is gathered first."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    if not is_dtensor(xh):
+        return ssd_scan(xh, dtv, a, bm, cm, chunk=chunk)
+    from torch.distributed.tensor import Replicate, Shard
+
+    rep, s0, s2 = Replicate(), Shard(0), Shard(2)
+    to = {  # per mesh axis: xh, dtv, a, bm, cm, y, state
+        "batch": (s0, s0, rep, s0, s0, s0, s0),
+        "heads": (s2, s2, s0, rep, rep, s2, Shard(1)),
+        None: (rep,) * 7,
+    }
+    *ins, yp, sp = zip(*(to[r] for r in kernel_split(xh, xh.shape[2])))
+    b, _, h, p = xh.shape
+    return local_call(functools.partial(ssd_scan, chunk=chunk),
+                      (xh, dtv, a, bm, cm), ins, (yp, sp),
+                      (xh.shape, (b, h, p, bm.shape[-1])))
 
 
 def _conv_inputs(cfg: ModelConfig, p: dict, x):
@@ -188,9 +219,7 @@ def ssm_mixer(cfg: ModelConfig, rules: ShardingRules, p: dict, x, *,
     if cache is None:
         xh, Bc, Cc, dtv = _ssd_inputs(cfg, p, conv_in, dt)
         if cfg.use_pallas:
-            from repro_torch.kernels.ssd_scan.ops import ssd_scan
-
-            y, _ = ssd_scan(xh, dtv, a, Bc, Cc, chunk=s.chunk)
+            y, _ = _ssd_kernel(xh, dtv, a, Bc, Cc, chunk=s.chunk)
         else:
             y, _ = ssd_chunked(xh, dtv, a, Bc, Cc, chunk=s.chunk,
                                rules=rules)
@@ -232,4 +261,11 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype,
                             dtype=dtype, device=device),
         "state": torch.zeros((n_layers, batch, heads, s.head_dim, s.d_state),
                              dtype=dtype, device=device),
+    }
+
+
+def ssm_cache_logical() -> dict:
+    return {
+        "conv": ("layers", "batch", None, "tp"),
+        "state": ("layers", "batch", "tp", None, None),
     }

@@ -30,7 +30,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.specs import ShardingRules
+from repro_torch.sharding.specs import (ShardingRules, from_local,
+                                     is_dtensor, local_call)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -193,15 +194,44 @@ def _at(tree, *idx):
     return tree[idx]
 
 
+def _stacked_like(lead: tuple[int, ...], v):
+    """An empty ``lead`` + v.shape buffer; for a DTensor ``v``, a DTensor
+    sharded as ``v`` is (its dims shifted past ``lead``, a partial sum
+    replicated), so that each layer's cache is written locally."""
+    shape = lead + tuple(v.shape)
+    if not is_dtensor(v):
+        return torch.empty(shape, dtype=v.dtype, device=v.device)
+    from torch.distributed.tensor import Replicate, Shard
+
+    place = [Shard(pl.dim + len(lead)) if isinstance(pl, Shard)
+             else Replicate() for pl in v.placements]
+    local = torch.empty(lead + tuple(v.to_local().shape), dtype=v.dtype,
+                        device=v.to_local().device)
+    return from_local(local, v.device_mesh, place, shape)
+
+
 def _store(stacked: dict | None, lead: tuple[int, ...], idx: tuple,
            cache: dict) -> dict:
     """Write one layer's cache leaves at ``idx`` of the stacked cache,
     allocating it (``lead`` + the leaf's shape) at the first layer."""
     if stacked is None:
-        stacked = {k: torch.empty(lead + tuple(v.shape), dtype=v.dtype,
-                                  device=v.device) for k, v in cache.items()}
+        stacked = {k: _stacked_like(lead, v) for k, v in cache.items()}
+
+    def put(dst, v):
+        dst[idx] = v
+        return dst
+
     for k, v in cache.items():
-        stacked[k][idx] = v
+        dst = stacked[k]
+        if not is_dtensor(dst):
+            put(dst, v)
+            continue
+        from torch.distributed.tensor import Replicate, Shard
+
+        layer = [Shard(pl.dim - len(lead)) if isinstance(pl, Shard)
+                 else Replicate() for pl in dst.placements]
+        local_call(put, (dst, v), (dst.placements, layer), dst.placements,
+                   dst.shape)
     return stacked
 
 

@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode_step, prefill
-from repro_torch.sharding.specs import ShardingRules
+from repro_torch.sharding.specs import ShardingRules, unshard
 
 
 def make_prefill_step(cfg: ModelConfig, rules: ShardingRules, *, t_max: int):
@@ -28,6 +28,8 @@ def make_serve_step(cfg: ModelConfig, rules: ShardingRules, *,
 
     def serve_step(params, state, tokens):
         logits, state = decode_step(cfg, rules, params, state, tokens)
+        # the argmax reads each row whole over the vocab
+        logits = unshard(logits, -1)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], state
 
     return serve_step

@@ -34,6 +34,8 @@ import dataclasses
 import threading
 from typing import Any, Sequence
 
+from repro_torch.device import is_dtensor
+
 _state = threading.local()
 
 
@@ -204,22 +206,134 @@ def logical_to_physical(
     return P(*axes)
 
 
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
-
-
 def shard_constraint(x, rules: ShardingRules, *logical: str | None):
     """A DTensor redistributed to the logical spec's placements while a
     mesh is set; anything else as it is."""
     mesh = current_mesh()
-    if mesh is None or not _is_dtensor(x):
+    if mesh is None or not is_dtensor(x):
         return x
     spec = logical_to_physical(
         rules.filter_for_mesh(mesh), logical, shape=x.shape, mesh=mesh
     )
     return x.redistribute(x.device_mesh, NamedSharding(mesh, spec).placements())
+
+
+def from_local(local, mesh, placements, shape):
+    """The DTensor of global ``shape`` (contiguous) whose shard on this
+    rank is ``local``, on ``placements``: the far side of a boundary where
+    the model hands local shards to a kernel or a plain function."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(
+        local.contiguous(), mesh, list(placements), run_check=False,
+        shape=tuple(shape),
+        stride=torch.empty(tuple(shape), device="meta").stride())
+
+
+def local_call(fn, args, in_placements, out_placements, out_shapes,
+               grad_placements=None):
+    """``fn`` on this rank's shards of the DTensors ``args``, its output
+    (or each of a tuple of them) back as the DTensor of global shape
+    ``out_shapes`` on ``out_placements``: the one boundary where the model
+    hands a kernel or a plain function what one rank holds. Each arg is
+    first redistributed to its entry of ``in_placements`` (None passes the
+    arg as it is); ``grad_placements`` (default ``in_placements``) lays
+    out its gradient's shard, ``Partial`` where every rank adds a part.
+    torch's ``local_map`` does the same but infers each output's global
+    shape from even shards."""
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    grads = in_placements if grad_placements is None else grad_placements
+    out = fn(*(a if pl is None else
+               a.redistribute(mesh, pl).to_local(grad_placements=g)
+               for a, pl, g in zip(args, in_placements, grads)))
+    if isinstance(out, tuple):
+        return tuple(from_local(o, mesh, pl, sh) for o, pl, sh
+                     in zip(out, out_placements, out_shapes))
+    return from_local(out, mesh, out_placements, out_shapes)
+
+
+def kernel_split(x, *head_counts: int, heads: int = 2) -> list:
+    """Per mesh axis of DTensor ``x``, how a kernel that works per batch
+    row and head (flash attention, the SSD scan) takes it as local shards
+    that compute the same function: "batch" where the axis cuts dim 0,
+    "heads" where it cuts dim ``heads`` into shards that hold whole groups
+    of every one of ``head_counts`` (GQA's query and kv heads), else None:
+    gathered first (the sequence, uneven heads)."""
+    from torch.distributed.tensor import Shard
+
+    n = shards_of(x, heads)
+    whole = all(c % n == 0 for c in head_counts)
+    return ["batch" if pl == Shard(0) else
+            "heads" if pl == Shard(heads) and whole else None
+            for pl in x.placements]
+
+
+def replicate_like(t, ref):
+    """A plain tensor ``t`` as a DTensor replicated over the mesh of
+    ``ref`` when ``ref`` is a DTensor; else ``t``. DTensor refuses an op
+    that mixes a DTensor with a plain tensor of more than one element (the
+    masks, frequencies and index ranges a layer builds), in the backward
+    pass too."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    mesh = ref.device_mesh
+    return from_local(t, mesh, [Replicate()] * mesh.ndim, t.shape)
+
+
+def shards_of(x, dim: int) -> int:
+    """Into how many pieces the mesh axes of DTensor ``x`` cut its tensor
+    dim ``dim`` (1 for anything else)."""
+    if not is_dtensor(x):
+        return 1
+    from torch.distributed.tensor import Shard
+
+    n = 1
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == dim % x.ndim:
+            n *= x.device_mesh.size(i)
+    return n
+
+
+def unshard(x, *dims: int):
+    """A DTensor redistributed so that no mesh axis shards tensor dims
+    ``dims`` (every dim when none is named) and no partial sum is left
+    pending; anything else as it is. The model stack calls it where
+    DTensor has no sharding strategy for an op on a sharded dim: GSPMD
+    replicates that dim there too."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    nd = max(x.ndim, 1)
+    drop = {d % nd for d in dims} if dims else set(range(nd))
+    out = [pl if isinstance(pl, Shard) and pl.dim not in drop
+           else Replicate() for pl in x.placements]
+    if out == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, out)
+
+
+def device_put(tree, shardings):
+    """Each tensor of ``tree`` as a DTensor placed by the ``NamedSharding``
+    at the same path of ``shardings``: the port of ``jax.device_put(tree,
+    shardings)``. Rank 0's values are the ones scattered
+    (``src_data_rank=0``), so every rank holds the same global tensor
+    whatever its own copy held; a DTensor is redistributed. Trees are
+    nested dicts."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.tree import tree_map
+
+    def put(t, sh):
+        if is_dtensor(t):
+            return t.redistribute(sh.mesh, sh.placements())
+        return distribute_tensor(t, sh.mesh, sh.placements(),
+                                 src_data_rank=0)
+
+    return tree_map(put, tree, shardings)
 
 
 def make_param_shardings(mesh, rules: ShardingRules, abstract_tree):

@@ -16,7 +16,8 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import loss_fn
-from repro_torch.sharding.specs import ShardingRules, mesh_axis_sizes
+from repro_torch.sharding.specs import (ShardingRules, is_dtensor,
+                                     mesh_axis_sizes)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .optimizer import OptConfig, adamw_update
 
@@ -42,13 +43,30 @@ def _batch_size(batch) -> int:
     return next(iter(batch.values())).shape[0]
 
 
+def _placed_like(grad, param):
+    """A DTensor gradient redistributed to its parameter's placements.
+    Autograd hands a weight replicated over a mesh axis its gradient as a
+    partial sum over that axis; this is where XLA's jit reduces it."""
+    if is_dtensor(param) and grad.placements != param.placements:
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
+def _grads(params, live, scale: float = 1.0):
+    """The tree of the ``live`` leaves' gradients, times ``scale``, each
+    on its parameter's placements."""
+    return tree_unflatten(params, [
+        _placed_like(t.grad if scale == 1.0 else t.grad * scale, p)
+        for t, p in zip(live, tree_leaves(params))])
+
+
 def _value_and_grad(lw, params, batch):
     """(loss, metrics, grads) of one backward pass, detached."""
     # leaves that share the parameters' storage and collect grads
     live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, metrics = lw(tree_unflatten(params, live), batch)
     loss.backward()
-    grads = tree_unflatten(params, [t.grad for t in live])
+    grads = _grads(params, live)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -86,7 +104,7 @@ def make_train_step(
             loss.backward()  # grads add up in each leaf's .grad, in f32
             loss_sum = loss_sum + loss.detach()
         inv = 1.0 / microbatches
-        grads = tree_unflatten(params, [t.grad * inv for t in live])
+        grads = _grads(params, live, inv)
         loss = loss_sum * inv
         return grads, loss, {"loss": loss}
 

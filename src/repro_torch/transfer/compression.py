@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.kernels.quantize import ref as qref
+from repro_torch.sharding.specs import is_dtensor, local_call
 from repro_torch.tree import tree_map
 
 
@@ -39,7 +40,18 @@ def dequantize_int8_blockwise(q, scales, block: int = 256):
 
 
 def compress(x, block: int = 256, *, use_pallas: bool = False):
-    """Lossy round-trip (the on-wire transform)."""
+    """Lossy round-trip (the on-wire transform). The blocks run over the
+    whole tensor flattened, across any shard's edges, so a DTensor is
+    gathered whole, compressed on every rank, and handed back on its own
+    placements (each rank keeps its shard)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        whole = [Replicate()] * x.device_mesh.ndim
+        out = local_call(
+            lambda t: compress(t, block, use_pallas=use_pallas), (x,),
+            (whole,), whole, x.shape)
+        return out.redistribute(x.device_mesh, x.placements)
     q, s = quantize_int8_blockwise(x, block, use_pallas=use_pallas)
     if use_pallas:
         out = qops.dequantize_int8(q, s, block=block)

@@ -50,6 +50,24 @@ def test_all_names_resolve(pkg):
         assert getattr(port, name) is not None, name
 
 
+MODEL_MODULES = ("attention", "layers", "model", "moe", "params", "ssm",
+                 "transformer")
+
+
+@pytest.mark.parametrize("mod", MODEL_MODULES)
+def test_model_modules_define_the_reference_functions(mod):
+    """Every public function and class a module of ``models`` defines in
+    the reference, its port defines too (``ssm.ssm_cache_logical``, which
+    ``models/__init__`` exports in neither package, among them)."""
+    ref = importlib.import_module(f"repro.models.{mod}")
+    port = importlib.import_module(f"repro_torch.models.{mod}")
+    want = {n for n, v in vars(ref).items()
+            if not n.startswith("_") and (inspect.isfunction(v)
+                                          or inspect.isclass(v))
+            and v.__module__ == ref.__name__}
+    assert want <= set(vars(port)), want - set(vars(port))
+
+
 def test_left_out_names_are_absent():
     import repro_torch.transfer as t
     from repro_torch.transfer import flowsim, flowsim_ref

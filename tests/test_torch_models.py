@@ -226,6 +226,18 @@ def test_count_params_matches_reference(arch):
                 == _flat(j_state_logical(jc)))
 
 
+def test_ssm_cache_logical_matches_reference():
+    """The SSM cache's logical axes, which ``decode_logical`` gives a
+    pure-SSM arch's decode state too."""
+    from repro.models.ssm import ssm_cache_logical as j_ssm_cache_logical
+    from repro_torch.models.ssm import ssm_cache_logical
+
+    assert _flat(ssm_cache_logical()) == _flat(j_ssm_cache_logical())
+    cfg = t_reduced(T_ARCHS["mamba2-1.3b"])
+    assert _flat(decode_state_logical(cfg)["ssm"]) == _flat(
+        ssm_cache_logical())
+
+
 def _flat(tree, prefix="") -> dict:
     """A tree of logical-axis tuples as {dotted path: tuple}."""
     if isinstance(tree, dict):

@@ -219,3 +219,85 @@ def test_stable_top_k_breaks_ties_toward_the_lower_expert():
         jax.nn.softmax(jnp.asarray(router[0].numpy())), 2)[1])
     np.testing.assert_array_equal(recs[0]["experts"].numpy()[0], want)
     np.testing.assert_array_equal(want, [1, 2])
+
+
+MESH_REFERENCE = """
+import os, sys, pickle, dataclasses
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, "src")
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import ARCHS, MoEConfig, reduced
+from repro.launch.mesh import make_mesh_for
+from repro.models import moe
+from repro.sharding.specs import ShardingRules, set_mesh
+
+state, x, moe_cfg, kw = pickle.load(open(sys.argv[1], "rb"))
+cfg = dataclasses.replace(reduced(ARCHS["qwen3-moe-30b-a3b"]),
+                          moe=MoEConfig(**moe_cfg), **kw)
+params = {k: jnp.asarray(v) for k, v in state.items()}
+rules = ShardingRules(batch=("data",))
+mesh = make_mesh_for(1, 2, 1)
+set_mesh(mesh)
+with mesh:
+    y = jax.jit(lambda p, v: moe.moe_mlp(cfg, rules, p, v))(
+        params, jnp.asarray(x))
+pickle.dump((moe._batch_shards(rules), np.asarray(y)),
+            open(sys.argv[2], "wb"))
+"""
+
+
+def test_shard_dispatch_counts_the_mesh_batch_shards(tmp_path):
+    """``moe_shard_dispatch`` on a 2-way ``data`` mesh: the port counts 2
+    shards as the reference does, capacity is per shard, drops equal the
+    reference's dispatch rule replayed on each shard, and the output
+    equals the reference's on a mesh of 2 host devices (f32, 1e-4). It
+    differs from the output without a mesh, so the shard count shows."""
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.sharding.specs import set_mesh
+
+    moe_cfg = dict(num_experts=8, top_k=2, d_ff_expert=64,
+                   capacity_factor=0.5)
+    kw = dict(dtype="float32", moe_shard_dispatch=True,
+              moe_psum_combine=False)
+    jcfg, tcfg = _cfgs("float32", 0.5, True, False)
+    params, x = _inputs(jcfg)
+    state = convert.params_state(params)
+    src, dst = tmp_path / "in.pkl", tmp_path / "out.pkl"
+    src.write_bytes(pickle.dumps((state, x, moe_cfg, kw)))
+    repo = Path(__file__).resolve().parents[1]
+    ref = subprocess.run(
+        [sys.executable, "-c", MESH_REFERENCE, str(src), str(dst)],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    j_shards, want = pickle.loads(dst.read_bytes())
+
+    class _Mesh:  # make_mesh_for(1, 2, 1)'s axis names and shape
+        axis_names = ("data", "model")
+        devices = np.empty((2, 1))
+
+    rules = ShardingRules(batch=("data",))
+    tparams = convert.params_from_state(state, "cpu")
+    set_mesh(_Mesh())
+    try:
+        shards = moe._batch_shards(rules)
+        with moe.record_routing() as recs:
+            got = moe.moe_mlp(tcfg, rules, tparams, torch.tensor(x))
+    finally:
+        set_mesh(None)
+    alone = moe.moe_mlp(tcfg, rules, tparams, torch.tensor(x))
+    assert shards == j_shards == 2
+    eidx, _, _ = _reference_routing(jcfg, params, x)
+    t_loc = B * S // shards
+    cap = j_moe.capacity(jcfg, t_loc)
+    want_keep = np.concatenate([_kept(eidx[i * t_loc:(i + 1) * t_loc], cap)
+                                for i in range(shards)])
+    keep = recs[0]["keep"].numpy()
+    assert (~keep).sum() == (~want_keep).sum() > 0
+    np.testing.assert_array_equal(keep, want_keep)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    assert np.abs(alone.numpy() - want).max() > 1e-2
