@@ -65,7 +65,13 @@ smollm-135m with every parameter and moment a DTensor on a one-rank
 ("data", "model") = (1, 1) mesh over ``cpu:gloo,cuda:nccl``, 3 steps
 against 3 plain steps, and a 4 x 2048 prefill through the flash
 kernel under the mesh with 8 greedy decode steps against the plain
-serve. Each phase prints one line; the line before the last lists
+serve. The dry run comes last (``[dryrun]``): ``python -m
+repro_torch.launch.dryrun`` on smollm-135m's decode_32k cell over a fake
+512-rank (2, 16, 16) mesh of the card's type, then the training cell
+above counted by the dry run on a one-rank (1, 1) mesh against 3 real
+steps under ``FlopCounterMode`` (FLOPs equal, the predicted peak memory
+within 25% of the card's) and its median step against the count's
+roofline terms. Each phase prints one line; the line before the last lists
 every kernel with its launches on the main paths, its error against
 its plain version, its time and its bound; the last line is the device
 summary. Any failed
@@ -3586,6 +3592,161 @@ def sharded_path() -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+DRYRUN_CELL = ("smollm-135m", "decode_32k", "multi")
+DRYRUN_STEPS = 3  # real steps of the [train] cell, each under the counter
+DRYRUN_MEM_TOL = 0.25  # the dry run's peak against the card's
+
+
+def dryrun_cli(workdir: Path) -> dict:
+    """(a) ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELL in a
+    subprocess, the mesh on the card's device type (the CLI's default):
+    the reference's slow test's checks. Returns the artifact."""
+    import os
+
+    from repro_torch.launch.dryrun import cell_path
+
+    arch, shape, mesh = DRYRUN_CELL
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--force", "--out",
+         str(workdir)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"[dryrun] the CLI failed: {proc.stdout[-1500:]}"
+          f"{proc.stderr[-3000:]}")
+    art = json.loads(cell_path(workdir, arch, shape, mesh).read_text())
+    status, mesh_shape = art["status"], art["mesh_shape"]
+    check(status == "ok", f"[dryrun] status {status}")
+    check(mesh_shape == {"pod": 2, "data": 16, "model": 16},
+          f"[dryrun] mesh {mesh_shape}")
+    check(art["full"]["flops_per_device"] > 0, "[dryrun] no FLOPs counted")
+    art["cli_wall_s"] = wall
+    return art
+
+
+def dryrun_train() -> dict:
+    """(b) the [train] cell's step on the card, DRYRUN_STEPS of them each
+    under ``FlopCounterMode``, then as many timed without it; peak memory
+    from a reset after the inputs exist, less what was allocated before
+    them. Returns the card's numbers."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import convert, models
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.sharding.specs import ShardingRules
+    from repro_torch.train import init_opt_state, make_train_step
+
+    cfg = train_cfg()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_params(cfg, gen, "cuda")
+    opt = init_opt_state(params)
+    pipe = ShardedTokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S)
+    step = make_train_step(cfg, ShardingRules(batch=None, fsdp=None, tp=None),
+                           train_opt(DRYRUN_STEPS))
+    batches = [convert.batch_from_numpy(next(pipe), "cuda")
+               for _ in range(DRYRUN_STEPS)]
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    flops = []
+    for b in batches:
+        with FlopCounterMode(display=False) as fcm:
+            step(params, opt, b)
+        flops.append(fcm.get_total_flops())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        step(params, opt, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return {"flops": flops, "argument_bytes": args, "peak_bytes": peak,
+            "step_s": times}
+
+
+def phase_dryrun(workdir: Path) -> None:
+    """[dryrun]: (a) ``dryrun_cli``; (b) the [train] cell (full
+    smollm-135m, bf16, remat "full", 8 x 2,048, plain gradients) counted
+    by ``launch.dryrun.count_step`` on a one-rank (1, 1) mesh of the
+    card's type over a fake group, against ``dryrun_train``. Checks: the
+    count equals each card step's ``FlopCounterMode`` count exactly; the
+    dry run's argument + temp bytes within DRYRUN_MEM_TOL of the card's
+    peak. Prints the median step against the count's roofline terms (H100
+    datasheet constants)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.dryrun import count_step
+
+    t_phase = time.perf_counter()
+    art = dryrun_cli(workdir)
+    cfg = train_cfg()
+    check(cfg.remat and cfg.remat_policy == "full" and not cfg.use_pallas
+          and cfg.dtype == "bfloat16", f"not the [train] cell: {cfg}")
+    t0 = time.perf_counter()
+    counted = count_step(cfg, ShapeSpec("train_smoke", TRAIN_S, TRAIN_B,
+                                        "train"), (1, 1))
+    count_s = time.perf_counter() - t0
+    card = dryrun_train()
+    flops, card_flops = counted["flops_per_device"], card["flops"]
+    check(all(f == flops for f in card_flops),
+          f"[dryrun] one rank counted {flops} FLOPs, the card's steps "
+          f"{card_flops}")
+    predicted = counted["argument_bytes"] + counted["temp_bytes"]
+    card_peak = card["peak_bytes"]
+    mem_gap = predicted / card_peak - 1.0
+    check(abs(mem_gap) <= DRYRUN_MEM_TOL,
+          f"[dryrun] predicted peak {predicted} B against the card's "
+          f"{card_peak} B ({mem_gap:+.3f})")
+    terms = hlo_stats.roofline_terms(counted["flops_per_device"],
+                                     counted["bytes_per_device"], 0.0)
+    med = float(np.median(card["step_s"]))
+    full = art["full"]
+    say("dryrun", phase_s=time.perf_counter() - t_phase, card=card_line(),
+        cli_cell="__".join(DRYRUN_CELL), cli_wall_s=art["cli_wall_s"],
+        cli_lower_compile_s=art["lower_compile_s"],
+        cli_mesh=art["mesh_shape"],
+        cli_flops_per_device=full["flops_per_device"],
+        cli_bytes_per_device=full["bytes_per_device"],
+        cli_wire_bytes_per_device=full["wire_bytes_per_device"],
+        cli_argument_bytes=full["argument_bytes"],
+        cli_temp_bytes=full["temp_bytes"],
+        cli_collectives=full["collectives"]["counts"],
+        train_cell=[TRAIN_ARCH, TRAIN_B, TRAIN_S], count_s=count_s,
+        flops_counted=counted["flops_per_device"],
+        flops_card=card["flops"],
+        bytes_counted=counted["bytes_per_device"],
+        argument_bytes_counted=counted["argument_bytes"],
+        argument_bytes_card=card["argument_bytes"],
+        temp_bytes_counted=counted["temp_bytes"],
+        peak_bytes_predicted=predicted, peak_bytes_card=card["peak_bytes"],
+        peak_gap=mem_gap, step_s=card["step_s"], step_s_median=med,
+        compute_s=terms["compute_s"], memory_s=terms["memory_s"],
+        step_over_compute_s=med / terms["compute_s"],
+        step_over_memory_s=med / terms["memory_s"],
+        roofline_share=max(terms["compute_s"], terms["memory_s"]) / med)
+
+
+def dryrun_path() -> None:
+    """[dryrun] with its files under a git-ignored directory of the
+    checkout, removed at the end."""
+    import shutil
+
+    workdir = ROOT / "_build" / "dryrun_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        phase_dryrun(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers here")
@@ -3679,6 +3840,7 @@ def main(argv=None) -> int:
         k["launches"] += ring[k["name"]]
     kernels += train
     sharded = sharded_path()
+    dryrun_path()
     for k in kernels:
         if k["name"] == "flash_attention":
             k["launches"] += sharded["flash_attention"]

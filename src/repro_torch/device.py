@@ -27,3 +27,19 @@ def is_dtensor(x) -> bool:
     ``torch.distributed.tensor`` is imported."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def note_meta(event: str, *args) -> None:
+    """Report work that a ``meta`` route stood in for (a kernel it did
+    not launch, a ring hop it did not send) to the innermost dispatch
+    mode that records it: ``mode.note_<event>(*args)``, the dry run's
+    step recorder (``launch/hlo_stats.py``). Under no such mode nothing
+    happens. Looked up by method name, so the kernels and the ring know
+    nothing of the dry run."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        note = getattr(mode, f"note_{event}", None)
+        if note is not None:
+            note(*args)
+            return

@@ -3,7 +3,9 @@
 ``quantize_int8`` flattens to f32 and ``dequantize_int8`` inverts it; each
 takes the plain version (``ref.py``) for tensors on the CPU and launches
 its CUDA kernel (``csrc/quantize.cu``) for tensors on the card; there is
-no other route and no fallback. The kernels mask the ragged last block
+no other route and no fallback, but for ``meta`` tensors (the dry run,
+``launch/dryrun.py``), which get outputs of the right shapes and compute
+nothing. The kernels mask the ragged last block
 themselves, so nothing is padded on the card; the reference's padding to
 8 rows of blocks (``repro/kernels/quantize/ops.py:11,25-26,42-45``) was
 the TPU's sublane tiling and is not carried over. q and the scales equal
@@ -21,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.device import note_meta
 from repro_torch.obs.metrics import REGISTRY
 
 from .. import refuse_dtensor
@@ -79,11 +82,29 @@ def _dequant_kernel(q, scales, block: int):
     return out
 
 
-def _route(t, kernel, plain):
+def _quant_meta(flat, block: int):
+    """The meta route (the dry run): the kernel's outputs, allocated and
+    reported to the active step recorder; nothing computed or launched."""
+    q = torch.empty(flat.shape[0], dtype=torch.int8, device=flat.device)
+    scales = torch.empty(_n_blocks(flat.shape[0], block),
+                         dtype=torch.float32, device=flat.device)
+    note_meta("kernel", (flat,), (q, scales))
+    return q, scales
+
+
+def _dequant_meta(q, scales, block: int):
+    out = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+    note_meta("kernel", (q, scales), (out,))
+    return out
+
+
+def _route(t, kernel, plain, meta):
     if t.device.type == "cpu":
         return plain
     if t.device.type == "cuda":
         return kernel
+    if t.device.type == "meta":
+        return meta
     raise ValueError(f"no quantize kernel for device {t.device}")
 
 
@@ -94,7 +115,8 @@ def quantize_int8(x, *, block: int = 256):
     refuse_dtensor("quantize", x)
     flat = x.reshape(-1).to(torch.float32).contiguous()
     _n_blocks(flat.shape[0], block)
-    fn = _route(flat, _quant_kernel, ref.quantize_int8_flat)
+    fn = _route(flat, _quant_kernel, ref.quantize_int8_flat,
+                _quant_meta)
     q, scales = fn(flat, block)
     return q.reshape(x.shape), scales
 
@@ -113,7 +135,8 @@ def dequantize_int8(q, scales, *, block: int = 256):
         )
     if scales.device != flat.device:
         raise ValueError("q and scales must be on one device")
-    fn = _route(flat, _dequant_kernel, ref.dequantize_int8_flat)
+    fn = _route(flat, _dequant_kernel, ref.dequantize_int8_flat,
+                _dequant_meta)
     return fn(flat, scales, block).reshape(q.shape)
 
 

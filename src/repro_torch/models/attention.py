@@ -24,6 +24,7 @@ from repro_torch.sharding.specs import (
     mesh_axis_sizes,
     replicate_like,
     shard_constraint,
+    shard_offset,
     shards_of,
     unshard,
 )
@@ -258,7 +259,12 @@ def _pad_seq(x, t_max: int):
 def _write_slot(cache, slot, new) -> None:
     """cache [B,T,Kv,Dh][:, slot] = new [B,1,Kv,Dh], in place. A DTensor
     cache is written through its local shard, ``new`` first brought to
-    the cache's placements: the write is local wherever T is whole."""
+    the cache's placements but whole over T. Where mesh axes shard T
+    (context parallelism), each rank holds T's rows from its
+    ``shard_offset`` on and writes the slot only if it falls there: the
+    local slot clamped into range and the old row kept where it does not,
+    with no host read of the slot (the reference's dynamic-update-slice
+    under GSPMD)."""
     idx = (unshard(slot).to_local() if is_dtensor(slot) else slot)
     idx = idx.reshape(1).long()
 
@@ -269,12 +275,24 @@ def _write_slot(cache, slot, new) -> None:
     if not is_dtensor(cache):
         write(cache, new)
         return
-    from torch.distributed.tensor import Shard
+    if shards_of(cache, 1) == 1:
+        local_call(write, (cache, new), (cache.placements,) * 2,
+                   cache.placements, cache.shape)
+        return
+    from torch.distributed.tensor import Replicate, Shard
 
-    if any(isinstance(pl, Shard) and pl.dim == 1 for pl in cache.placements):
-        raise ValueError("decode writes a KV cache whose sequence dim is "
-                         "whole on every rank")
-    local_call(write, (cache, new), (cache.placements,) * 2,
+    offset = shard_offset(cache, 1)
+
+    def write_if_here(c, n):
+        at = idx - offset
+        inside = ((at >= 0) & (at < c.shape[1])).reshape(1, 1, 1, 1)
+        at = at.clamp(0, c.shape[1] - 1)
+        return c.index_copy_(1, at, torch.where(inside, n,
+                                                c.index_select(1, at)))
+
+    whole_t = tuple(Replicate() if pl == Shard(1) else pl
+                    for pl in cache.placements)
+    local_call(write_if_here, (cache, new), (cache.placements, whole_t),
                cache.placements, cache.shape)
 
 

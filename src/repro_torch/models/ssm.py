@@ -135,35 +135,76 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, *, rules=None):
     return y, state.to(x.dtype)
 
 
-def _ssd_kernel(xh, dtv, a, bm, cm, *, chunk: int):
-    """The SSD kernel on xh [B,S,H,P], dtv [B,S,H], a [H], bm/cm [B,S,N]
-    -> (y [B,S,H,P], state [B,H,P,N]). DTensors cross to the kernel as
-    local shards where ``kernel_split`` says a shard computes the same
-    function, as the flash kernel's do (B and C are shared by every head,
-    so whole on a head shard); every other placement is gathered first."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
-
+def _ssd_local(fn, xh, dtv, a, bm, cm):
+    """``fn(xh, dtv, a, bm, cm) -> (y, state)`` (the SSD kernel or the
+    plain ``ssd_chunked``) on xh [B,S,H,P], dtv [B,S,H], a [H], bm/cm
+    [B,S,N] -> (y [B,S,H,P], state [B,H,P,N]). DTensors cross as local
+    shards where ``kernel_split`` says a shard computes the same function,
+    as the flash kernel's do (B and C are shared by every head, so whole
+    on a head shard, and ``a`` by every row); every other placement is
+    gathered first. A whole input shared by the shards gets a partial
+    gradient from each. DTensor's own einsums in ``ssd_chunked`` would
+    flatten a batch sharded over two mesh axes behind the sharded heads,
+    which the card's torch refuses."""
     if not is_dtensor(xh):
-        return ssd_scan(xh, dtv, a, bm, cm, chunk=chunk)
-    from torch.distributed.tensor import Replicate, Shard
+        return fn(xh, dtv, a, bm, cm)
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
-    rep, s0, s2 = Replicate(), Shard(0), Shard(2)
+    rep, s0, s2, part = Replicate(), Shard(0), Shard(2), Partial()
     to = {  # per mesh axis: xh, dtv, a, bm, cm, y, state
         "batch": (s0, s0, rep, s0, s0, s0, s0),
         "heads": (s2, s2, s0, rep, rep, s2, Shard(1)),
         None: (rep,) * 7,
     }
-    *ins, yp, sp = zip(*(to[r] for r in kernel_split(xh, xh.shape[2])))
+    grad = {"batch": (s0, s0, part, s0, s0),
+            "heads": (s2, s2, s0, part, part), None: (rep,) * 5}
+    split = kernel_split(xh, xh.shape[2])
+    *ins, yp, sp = zip(*(to[r] for r in split))
     b, _, h, p = xh.shape
-    return local_call(functools.partial(ssd_scan, chunk=chunk),
-                      (xh, dtv, a, bm, cm), ins, (yp, sp),
-                      (xh.shape, (b, h, p, bm.shape[-1])))
+    return local_call(fn, (xh, dtv, a, bm, cm), ins, (yp, sp),
+                      (xh.shape, (b, h, p, bm.shape[-1])),
+                      grad_placements=list(zip(*(grad[r] for r in split))))
+
+
+def _ssd_kernel(xh, dtv, a, bm, cm, *, chunk: int):
+    """The SSD kernel through ``_ssd_local``."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    return _ssd_local(functools.partial(ssd_scan, chunk=chunk),
+                      xh, dtv, a, bm, cm)
+
+
+def _dense(eq: str, x, w):
+    """x [B,S,K] @ w [K,N] -> [B,S,N] (the einsum ``eq``). DTensors are
+    multiplied as local shards, as ``attention._project`` does: x keeps its
+    batch and sequence shards, w its column shards, a K cut on both gives
+    a partial sum, and everything else is gathered. DTensor's own einsum
+    flattens B and S, and its backward may shard both (the gradient of
+    the projection's split lands on the sequence), which the card's torch
+    refuses to flatten."""
+    if not is_dtensor(x):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from .attention import _local_product
+
+    rep, roles = Replicate(), []
+    for pl_x, pl_w in zip(x.placements, w.placements):
+        if isinstance(pl_x, Shard) and pl_x.dim in (0, 1):  # rows
+            roles.append((pl_x, rep, pl_x, pl_x, Partial()))
+        elif pl_w == Shard(1):  # columns
+            roles.append((rep, pl_w, Shard(2), Partial(), pl_w))
+        elif pl_x == Shard(2) and pl_w == Shard(0):  # the contraction
+            roles.append((pl_x, pl_w, Partial(), pl_x, pl_w))
+        else:
+            roles.append((rep,) * 5)
+    return _local_product(eq, x, w, roles, (*x.shape[:2], w.shape[1]))
 
 
 def _conv_inputs(cfg: ModelConfig, p: dict, x):
     """in_proj and its split: (z, conv input [B,S,Cd], dt, a)."""
     dt_ = x.dtype
-    zxbcdt = torch.einsum("bsd,dp->bsp", x, p["in_proj"].to(dt_))
+    zxbcdt = _dense("bsd,dp->bsp", x, p["in_proj"].to(dt_))
     z, xs, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     a = -torch.exp(p["a_log"].float())  # [H]
     return z, torch.cat([xs, Bc, Cc], dim=-1), dt, a
@@ -174,7 +215,7 @@ def _mix_out(cfg: ModelConfig, p: dict, y, z, dt_):
     d_inner = _dims(cfg)[0]
     y = y.reshape(*y.shape[:2], d_inner)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return torch.einsum("bsi,id->bsd", y, p["out_proj"].to(dt_))
+    return _dense("bsi,id->bsd", y, p["out_proj"].to(dt_))
 
 
 def _ssd_inputs(cfg: ModelConfig, p: dict, conv_in, dt):
@@ -199,7 +240,8 @@ def ssm_prefill_mixer(cfg: ModelConfig, rules: ShardingRules, p: dict, x):
     z, conv_in, dt, a = _conv_inputs(cfg, p, x)
     conv_cache = conv_in[:, -(s.d_conv - 1):, :]
     xh, Bc, Cc, dtv = _ssd_inputs(cfg, p, conv_in, dt)
-    y, state = ssd_chunked(xh, dtv, a, Bc, Cc, chunk=s.chunk, rules=rules)
+    y, state = _ssd_local(functools.partial(ssd_chunked, chunk=s.chunk,
+                                            rules=rules), xh, dtv, a, Bc, Cc)
     y = y + p["d_skip"].to(dt_)[None, None, :, None] * xh
     out = _mix_out(cfg, p, y, z, dt_)
     out = shard_constraint(out, rules, "batch", "seq", None)
@@ -221,8 +263,8 @@ def ssm_mixer(cfg: ModelConfig, rules: ShardingRules, p: dict, x, *,
         if cfg.use_pallas:
             y, _ = _ssd_kernel(xh, dtv, a, Bc, Cc, chunk=s.chunk)
         else:
-            y, _ = ssd_chunked(xh, dtv, a, Bc, Cc, chunk=s.chunk,
-                               rules=rules)
+            y, _ = _ssd_local(functools.partial(
+                ssd_chunked, chunk=s.chunk, rules=rules), xh, dtv, a, Bc, Cc)
         y = y + p["d_skip"].to(dt_)[None, None, :, None] * xh
         new_cache = None
     else:

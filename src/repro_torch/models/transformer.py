@@ -31,7 +31,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding.specs import (ShardingRules, from_local,
-                                     is_dtensor, local_call)
+                                     is_dtensor, local_call, replicate_like)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -429,7 +429,7 @@ def encoder_stack(cfg: ModelConfig, rules, params, frames):
     kernel), no remat, as in the reference."""
     positions = torch.arange(frames.shape[1], dtype=torch.int32,
                              device=frames.device)[None, :]
-    positions = positions.expand(frames.shape[:2])
+    positions = replicate_like(positions, frames).expand(frames.shape[:2])
     x = frames
     for i in range(cfg.encoder_layers):
         p = _at(params["blocks"], i)

@@ -297,6 +297,24 @@ def shards_of(x, dim: int) -> int:
     return n
 
 
+def shard_offset(x, dim: int) -> int:
+    """Where this rank's shard of DTensor ``x`` starts along ``dim`` (0
+    where no mesh axis cuts it). Each axis that cuts ``dim``, in mesh
+    order, splits what the axes before it left as ``torch.chunk`` does:
+    pieces of ceil(n / k), the last ones short or empty."""
+    from torch.distributed.tensor import Shard
+
+    mesh, dim = x.device_mesh, dim % x.ndim
+    coord = mesh.get_coordinate()
+    start, size = 0, x.shape[dim]
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            lo = min(coord[i] * chunk, size)
+            start, size = start + lo, min(chunk, size - lo)
+    return start
+
+
 def unshard(x, *dims: int):
     """A DTensor redistributed so that no mesh axis shards tensor dims
     ``dims`` (every dim when none is named) and no partial sum is left

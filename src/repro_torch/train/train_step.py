@@ -16,8 +16,9 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import loss_fn
-from repro_torch.sharding.specs import (ShardingRules, is_dtensor,
-                                     mesh_axis_sizes)
+from repro_torch.sharding.specs import (ShardingRules, current_mesh,
+                                        from_local, is_dtensor, local_call,
+                                        mesh_axis_sizes, set_mesh)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from .optimizer import OptConfig, adamw_update
 
@@ -136,14 +137,23 @@ def make_podring_train_step(
     compressed ring all-reduce (the paper's egress-volume lever applied to
     gradients on the inter-pod links).
 
-    One rank per pod of ``mesh`` (a DeviceMesh with a "pod" axis) runs
-    step(params, opt_state, batch) -> (params, opt_state, metrics) on the
-    same global batch: it takes its ``P("pod")`` shard, rows ``[p b / n,
+    Every rank of ``mesh`` (a DeviceMesh with a "pod" axis) runs
+    step(params, opt_state, batch) -> (params, opt_state, metrics). Its pod
+    takes the ``P("pod")`` shard of the global batch, rows ``[p b / n,
     (p + 1) b / n)`` for its index ``p`` along the pod axis, computes the
     loss and gradients as ``make_train_step`` does, averages the gradients
     over the ring (int8 + scales on the wire when ``compress_wire``), and
-    runs AdamW on its replica of the parameters and moments, in place.
-    ``metrics["loss"]`` is the pod mean."""
+    runs AdamW on the parameters and moments, in place. ``metrics["loss"]``
+    is the pod mean.
+
+    Plain parameters: one rank per pod, which holds a replica of the
+    parameters and moments and the whole global batch. DTensor parameters
+    (the reference's ``shard_map``, manual over "pod" and automatic over
+    the rest): parameters and moments ``Replicate`` over "pod" and placed
+    over the other axes by ``make_param_shardings``, the global batch a
+    DTensor (``shardings_for`` places it). Each pod computes on the
+    sub-mesh of its other axes (``rules.batch = "data"`` inside), and each
+    rank runs the ring on its local shards over its own pod group."""
     from repro_torch.transfer import collective
 
     sizes = mesh_axis_sizes(mesh)
@@ -157,16 +167,22 @@ def make_podring_train_step(
     # inside one pod, batch parallelism only spans 'data'
     lw = _loss_with_cast(cfg, dataclasses.replace(rules, batch="data"))
 
+    def ring(grads):
+        return collective.ring_allreduce_tree(
+            grads, group, order, compress_wire=compress_wire, mean=True
+        )
+
     def step(params, opt_state, batch):
         b = _batch_size(batch)
         if b % n_pods:
             raise ValueError(f"batch {b} does not split over {n_pods} pods")
-        p, rows = dist.get_rank(group), b // n_pods
-        local = {k: v[p * rows:(p + 1) * rows] for k, v in batch.items()}
-        loss, metrics, grads = _value_and_grad(lw, params, local)
-        grads = collective.ring_allreduce_tree(
-            grads, group, order, compress_wire=compress_wire, mean=True
-        )
+        if is_dtensor(tree_leaves(params)[0]):
+            loss, metrics, grads = _pod_grads(lw, mesh, params, batch, ring)
+        else:
+            p, rows = dist.get_rank(group), b // n_pods
+            local = {k: v[p * rows:(p + 1) * rows] for k, v in batch.items()}
+            loss, metrics, grads = _value_and_grad(lw, params, local)
+            grads = ring(grads)
         params, opt_state, opt_metrics = adamw_update(
             grads, params, opt_state, opt_cfg
         )
@@ -176,6 +192,56 @@ def make_podring_train_step(
         return params, opt_state, metrics
 
     return step
+
+
+def _pod_grads(lw, mesh, params, batch, ring):
+    """(loss, metrics, gradients) of one pod on DTensor parameters: the
+    loss on the sub-mesh of the axes but "pod" (``lw``'s rules, the mesh
+    set to the sub-mesh meanwhile), then ``ring`` over each rank's local
+    gradient shards. The loss comes back as this rank's plain value, the
+    gradients as DTensors on ``mesh`` on their parameters' placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_axis_sizes(mesh))
+    pod = names.index("pod")
+    inner = mesh[tuple(n for n in names if n != "pod")]
+
+    def drop_pod(pl):
+        return tuple(x for i, x in enumerate(pl) if i != pod)
+
+    def to_inner(t):
+        if t.placements[pod] != Replicate():
+            raise ValueError(f"a parameter placed {t.placements} is not "
+                             f"replicated over the pod axis")
+        return from_local(t.to_local(), inner, drop_pod(t.placements),
+                          t.shape)
+
+    def rows(t):  # the pod's rows, as placed over the other axes
+        want = list(t.placements)
+        want[pod] = Shard(0)
+        t = t.redistribute(mesh, want)
+        return from_local(t.to_local(), inner, drop_pod(want),
+                          (t.shape[0] // mesh.size(pod), *t.shape[1:]))
+
+    prev = current_mesh()
+    set_mesh(inner)
+    try:
+        loss, metrics, grads = _value_and_grad(
+            lw, tree_map(to_inner, params), tree_map(rows, batch))
+    finally:
+        set_mesh(prev)
+    leaves = tree_leaves(grads)
+
+    def ring_local(*local):
+        return tuple(tree_leaves(ring(tree_unflatten(grads, list(local)))))
+
+    reduced = local_call(ring_local, leaves, [g.placements for g in leaves],
+                         [g.placements for g in leaves],
+                         [g.shape for g in leaves])
+    grads = tree_map(
+        lambda g, p: from_local(g.to_local(), mesh, p.placements, p.shape),
+        tree_unflatten(grads, list(reduced)), params)
+    return loss.to_local(), metrics, grads
 
 
 def _pod_mean(x, group, n: int):

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.device import note_meta
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.sharding.specs import mesh_axis_sizes
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -63,16 +64,22 @@ def choose_ring_order(pod_tput: np.ndarray) -> list[int]:
 
 def _wire_device(t: torch.Tensor, group) -> torch.device:
     """Where a message crosses: host memory on gloo, else the tensor's
-    own device."""
-    if dist.get_backend(group) == "gloo":
+    own device (``meta`` stays ``meta``: it has no data to stage)."""
+    if dist.get_backend(group) == "gloo" and t.device.type != "meta":
         return torch.device("cpu")
     return t.device
 
 
 def _exchange(tensors: list, group, dst: int, src: int) -> list:
     """Send ``tensors`` to group rank ``dst`` and receive as many of the
-    same shapes and types from group rank ``src``, in one batch."""
+    same shapes and types from group rank ``src``, in one batch. Meta
+    tensors (the dry run) move nothing: the received ones are allocated
+    and the hop is reported to the active step recorder."""
     wire = _wire_device(tensors[0], group)
+    if wire.type == "meta":
+        recv = [torch.empty_like(t) for t in tensors]
+        note_meta("hop", recv, dist.get_world_size(group))
+        return recv
     out = [t.to(wire).contiguous() for t in tensors]
     recv = [torch.empty_like(t) for t in out]
     g_dst = dist.get_global_rank(group, dst) if group is not None else dst

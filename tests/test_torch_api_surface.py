@@ -14,6 +14,7 @@ import dataclasses
 import importlib
 import inspect
 import types
+from pathlib import Path
 
 import pytest
 
@@ -191,3 +192,67 @@ def test_sim_signatures_equal_reference():
             inspect.signature(getattr(ref_flowsim, name))
     assert inspect.signature(flowsim_ref.simulate_transfer_reference) == \
         inspect.signature(ref_oracle.simulate_transfer_reference)
+
+
+# ------------------------------------------------------ module coverage
+SRC = Path(__file__).resolve().parents[1] / "src"
+# reference module -> its port, where the port's file has another name
+RENAMED = {
+    "core/solver/ipm_jax.py": "core/solver/ipm_torch.py",
+    "transfer/flowsim_jax.py": "transfer/flowsim_torch.py",
+}
+# the Pallas kernels: each becomes CUDA C++ sources in its package's csrc/
+PALLAS = ("kernels/flash_attention/flash_attention.py",
+          "kernels/quantize/quantize.py", "kernels/ssd_scan/ssd_scan.py",
+          "kernels/waterfill/waterfill.py")
+
+
+def _modules(root: Path) -> set:
+    return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+
+def test_every_reference_module_has_its_port():
+    """Every ``.py`` module of ``src/repro`` has a counterpart in
+    ``src/repro_torch``: the same path, or its port's name."""
+    port = _modules(SRC / "repro_torch")
+    missing = []
+    for mod in sorted(_modules(SRC / "repro")):
+        if mod in PALLAS:
+            if not list((SRC / "repro_torch" / mod).parent.glob("csrc/*.cu")):
+                missing.append(mod)
+        elif RENAMED.get(mod, mod) not in port:
+            missing.append(mod)
+    assert not missing, missing
+
+
+def _defined(path: Path) -> set:
+    """The public names a module's source defines at its top level."""
+    import ast
+
+    out = set()
+    for node in ast.parse(path.read_text(encoding="utf-8")).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out.add(node.target.id)
+    return {n for n in out if not n.startswith("_")}
+
+
+# what the dry run's port adds to the reference's names: the ring formulas'
+# one home and the recorder; a step counted on any mesh (chip_smoke's
+# one-rank count)
+PORT_ADDED = {
+    "launch/hlo_stats.py": {"wire_bytes", "StepRecorder"},
+    "launch/dryrun.py": {"count_step"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(PORT_ADDED))
+def test_dryrun_modules_define_the_reference_names(mod):
+    """Read from the sources: the reference's ``launch/dryrun.py`` sets
+    ``XLA_FLAGS`` when imported."""
+    want = _defined(SRC / "repro" / mod) | PORT_ADDED[mod]
+    assert _defined(SRC / "repro_torch" / mod) == want

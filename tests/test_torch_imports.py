@@ -79,6 +79,7 @@ def test_transfer_plane_modules_are_checked(module):
     "sharding/__init__.py", "launch/mesh.py", "launch/elastic.py",
     "launch/ranks.py", "transfer/collective.py", "analysis/__init__.py",
     "analysis/__main__.py", "analysis/engine.py", "analysis/rules.py",
+    "launch/dryrun.py", "launch/hlo_stats.py",
 ])
 def test_multi_device_modules_are_checked(module):
     """The multi-device layer's and skylint's modules are among the files
