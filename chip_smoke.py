@@ -85,6 +85,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
@@ -104,8 +105,7 @@ CHUNK_MB = 64.0
 # [sim_fleet]: direct jobs of 8 VMs x 64 connections (512 lanes each, the
 # topology's per-VM and per-region limits), 8 chunks of 16 MB each, over
 # three routes; 48 of them hold 24,576 lanes, twice what one water-filling
-# block's shared memory takes, so every solve takes the kernel's
-# device-memory variant
+# block's shared memory takes, so every solve takes the cluster kernel
 FLEET_JOBS, FLEET_CHUNKS, FLEET_CHUNK_MB = 48, 8, 16.0
 FLEET_ROUTES = (("aws:us-east-1", "aws:ap-southeast-2"),
                 ("aws:us-west-2", "aws:eu-central-1"),
@@ -302,34 +302,52 @@ def profiled(fn):
 
 
 SPIN_CYCLES = 50_000_000  # ~25 ms of spinning at H100 clocks
+SPIN_TRIES = 4  # each try doubles the spin: 25, 50, 100, 200 ms
 
 
 def kernel_ms(fn, reps: int) -> float:
     """Device time per call of ``fn`` (which must not synchronise), with
     the host's launch gaps hidden: a spin kernel holds the card while the
     host enqueues every call, so the CUDA events bracket only the calls'
-    device work. Raises if the spin ended before the host finished."""
+    device work. Where the spin ended before the host finished (a host
+    thread descheduled on shared cores), the calls are timed again behind
+    a spin twice as long; raises if that never held in ``SPIN_TRIES``
+    tries. The spin kernel is launched once before it is timed, so its
+    first launch's module load is not counted as the host's."""
     fn()
+    torch.cuda._sleep(1000)
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    torch.cuda._sleep(SPIN_CYCLES)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    b.synchronize()
-    s0 = torch.cuda.Event(enable_timing=True)
-    s1 = torch.cuda.Event(enable_timing=True)
-    s0.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    s1.record()
-    s1.synchronize()
-    check(host_ms < s0.elapsed_time(s1), "the spin ended before the host "
-          "had enqueued every call: the timing would include host gaps")
-    return a.elapsed_time(b) / reps
+    cycles = SPIN_CYCLES
+    for _ in range(SPIN_TRIES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if collecting:
+                gc.enable()
+        b.synchronize()
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        s1.synchronize()
+        if host_ms < s0.elapsed_time(s1):
+            return a.elapsed_time(b) / reps
+        print(f"kernel_ms: the host took {host_ms:.3f} ms, longer than "
+              f"the spin; timing again behind a longer one", file=sys.stderr)
+        cycles *= 2
+    check(False, f"the spin ended before the host had enqueued every call "
+          f"in {SPIN_TRIES} tries: the timing would include host gaps")
 
 
 # ------------------------------------------------------------- kernel inputs
@@ -375,11 +393,18 @@ def to_cpu(args: dict) -> dict:
     return {k: None if v is None else v.cpu() for k, v in args.items()}
 
 
-def wf_bound(args: dict, rounds: int, precision: str) -> tuple[float, str]:
-    """Least time for one solve: each operand read once (the conn-to-VM
-    and conn-to-edge maps once, as src/dst/eid), the rates written once;
+def wf_bound(args: dict, rounds: int, precision: str,
+             chain: int = 0) -> tuple[float, str, dict]:
+    """Least time for one solve, the largest of its terms (ms): each
+    operand read once (the conn-to-VM and conn-to-edge maps once, as
+    src/dst/eid) and the rates written once, at the card's memory rate;
     per live round ~12 float operations per lane and 2 per VM/edge
-    budget."""
+    budget, at its peak; and, where ``chain`` is given, that many
+    dependent f64 adds (the budget sums' longest chain, ``live_rounds``)
+    at ``add_chain_ns``, the card's measured time per dependent add.
+    Returns (ms, the term that binds, every term); the kernels line keeps
+    the contract's bytes and operations bound and carries a chain term
+    beside it."""
     nc, nv = args["caps"].shape[0], args["eg_cap"].shape[0]
     ne = 0 if args["ed_cap"] is None else args["ed_cap"].shape[0]
     n_maps = 2 if args["eid"] is None else 3
@@ -389,9 +414,33 @@ def wf_bound(args: dict, rounds: int, precision: str) -> tuple[float, str]:
         + nc * e  # rates out
     )
     ops = rounds * (12 * nc + 2 * (2 * nv + ne))
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS[precision]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
-        "operations"
+    terms = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+             "operations": ops / PEAK_OPS[precision] * 1e3}
+    if chain:
+        terms["chain"] = chain * add_chain_ns() * 1e-6
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+@functools.cache
+def add_chain_ns() -> float:
+    """The card's time per dependent f64 add: the water-filling library's
+    ``f64_add_chain`` (one thread, 2**20 adds, built with the library's
+    --fmad=false), device time over the adds."""
+    from repro_torch.kernels.waterfill.build import load
+
+    lib = load()
+    n = 1 << 20
+    x = torch.ones(1, dtype=torch.float64, device="cuda")
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+
+    def run():
+        rc = lib.f64_add_chain(x.data_ptr(), out.data_ptr(), n,
+                               torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"f64_add_chain launch failed: CUDA error {rc}")
+    ms = kernel_ms(run, 5)
+    check(float(out) == float(n), "f64_add_chain summed wrong")
+    return ms * 1e6 / n
 
 
 def live_rounds(args: dict, precision: str) -> tuple[int, int]:
@@ -492,7 +541,7 @@ def hold_sim_kernels(label, su, dev, errs) -> int:
     scenario's shapes: water-filling (f64 bitwise, f32 within 1e-5) over
     seeded live subsets with and without edges, and the ordered segment
     sum (bitwise) at its per-(job, edge) map. A solve past one block's
-    shared memory takes the device-memory variant, as the sim's would.
+    shared memory takes the cluster kernel, as the sim's would.
     Returns the water-filling cases run."""
     from repro_torch.kernels.waterfill import ops, ref
 
@@ -503,7 +552,7 @@ def hold_sim_kernels(label, su, dev, errs) -> int:
                                      ("f32", torch.float32)):
                 args = wf_inputs(su, dev, dtype, seed=seed, edges=edges)
                 ne = 0 if args["ed_cap"] is None else args["ed_cap"].shape[0]
-                lanes = (wf_lanes(args, precision) if ops.lanes_in_device_memory(
+                lanes = (wf_lanes(args, precision) if ops.needs_cluster(
                     args["caps"].shape[0], args["eg_cap"].shape[0], ne,
                     precision) else None)
                 got = ops.waterfill_rates(**args, precision=precision,
@@ -558,7 +607,7 @@ def phase_waterfill(shapes, dev, errs):
 
 
 def wf_lanes(args: dict, precision: str) -> torch.Tensor:
-    """The device-memory variant's scratch for a solve of ``args``."""
+    """The cluster kernel's lane scratch for a solve of ``args``."""
     from repro_torch.kernels.waterfill import ops
 
     n = ops.scratch_bytes(args["caps"].shape[0], 8 if precision == "f64"
@@ -566,48 +615,127 @@ def wf_lanes(args: dict, precision: str) -> torch.Tensor:
     return torch.empty(n, dtype=torch.uint8, device=args["caps"].device)
 
 
-def phase_waterfill_global(shapes, dev, errs):
-    """The water-filling kernel's device-memory variant against the plain
-    version: f64 bit for bit, f32 within 1e-5, at the Fig. 6 sim's shape
-    and at the fleet's, twice what one block's shared memory takes, where
-    the shared-memory entry must raise."""
+CLOCK_PASSES = ("A", "B", "C", "long_walk", "fold", "fold_wait",
+                "fold_first_wait")
+
+
+def cluster_clocks(args: dict, precision: str) -> dict:
+    """One cluster solve with its ``clocks`` out-pointer: cycles per pass,
+    each the most over the cluster's blocks (``csrc/waterfill.cu``'s
+    ``Clock``): staging, the owners' counts, and per live round (A), (B),
+    (C), the long-segment compaction warps' walk, the fold's adds and its
+    waits (all, and for its first chunk)."""
     from repro_torch.kernels.waterfill import ops
+
+    clk = torch.zeros(128, dtype=torch.int64, device=args["caps"].device)
+    ops.waterfill_rates(**args, precision=precision,
+                        lanes=wf_lanes(args, precision), clocks=clk)
+    c = clk.cpu().tolist()
+    rounds = [dict(zip(CLOCK_PASSES, c[4 + 7 * k: 11 + 7 * k]))
+              for k in range(min(c[2], 16))]
+    return {"stage": c[0], "count": c[1], "rounds": rounds, "total": c[3]}
+
+
+def past_cluster_args(dev, precision: str, seed: int = 29) -> dict:
+    """A solve whose lanes a 16-block cluster's shared memory cannot hold
+    (64 VMs, 16 edges; the first power of two of lanes past it), so the
+    cluster kernel keeps them in device memory."""
+    from repro_torch.kernels.waterfill import ops
+
+    nc = 1
+    while ops.cluster_plan(nc, 64, 16, precision).lanes_shared:
+        nc *= 2
+    rng = np.random.default_rng(seed)
+    dtype = torch.float64 if precision == "f64" else torch.float32
+
+    def f(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    def i(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    return dict(
+        caps=f(rng.uniform(0.5, 8.0, nc)), src=i(rng.integers(0, 64, nc)),
+        dst=i(rng.integers(0, 64, nc)), eg_cap=f(rng.uniform(100, 900, 64)),
+        in_cap=f(rng.uniform(100, 900, 64)), eid=i(rng.integers(0, 16, nc)),
+        ed_cap=f(rng.uniform(500, 2000, 16)),
+        active=torch.ones(nc, dtype=torch.bool, device=dev),
+    )
+
+
+def phase_waterfill_cluster(shapes, dev, errs) -> dict:
+    """The water-filling cluster kernel against the plain version: f64 bit
+    for bit, f32 within 1e-5, at the Fig. 6 sim's shape and the fleet's
+    (24,576 lanes, twice what one block's shared memory takes, where the
+    one-block entry must raise) over seeded live subsets, and past what a
+    16-block cluster's shared memory holds. Then each shape's time, its K,
+    its per-pass clock split, the card's ns per chained f64 add and the
+    chain bound. Returns the times for the kernels line."""
+    from repro_torch.kernels.waterfill import ops, ref
 
     fleet = wf_inputs(shapes["fleet"], dev, torch.float64)
     nc, nv = fleet["caps"].shape[0], fleet["eg_cap"].shape[0]
     ne = fleet["ed_cap"].shape[0]
-    check(ops.lanes_in_device_memory(nc, nv, ne),
+    check(ops.needs_cluster(nc, nv, ne),
           "the fleet's lanes fit one block's shared memory")
     try:
         ops.waterfill_rates(**fleet)
-        check(False, "the shared-memory entry took the fleet's solve")
+        check(False, "the one-block entry took the fleet's solve")
     except ValueError:
         pass
     n = 0
-    for label, su in shapes.items():
-        for seed in range(2):
-            for precision, dtype in (("f64", torch.float64),
-                                     ("f32", torch.float32)):
-                args = wf_inputs(su, dev, dtype, seed=seed)
-                got = ops.waterfill_rates(**args, precision=precision,
-                                          lanes=wf_lanes(args, precision))
-                want = ops.waterfill_rates(**to_cpu(args),
-                                           precision=precision)
-                got = got.cpu()
-                name = f"waterfill_{precision}_global"
-                errs[name] = max(errs.get(name, 0.0),
-                                 float((got - want).abs().max()))
-                if precision == "f64":
-                    check(torch.equal(got, want), f"f64 device-memory "
-                          f"variant != plain ({label}, seed {seed})")
-                else:
-                    torch.testing.assert_close(got, want, rtol=1e-5,
-                                               atol=1e-5)
-                n += 1
-    say("waterfill_global", cases=n, f64_bitwise=True, fleet_lanes=nc,
-        fleet_vms=nv, fleet_smem_bytes=ops.smem_bytes(nc, nv, ne, 8),
-        smem_limit=ops.SMEM_LIMIT, shared_entry_raised=True,
-        max_abs_err={k: v for k, v in errs.items() if "global" in k})
+    cases = [(label, seed, wf_inputs(su, dev, dtype, seed=seed), p)
+             for label, su in shapes.items() for seed in range(2)
+             for p, dtype in (("f64", torch.float64),
+                              ("f32", torch.float32))]
+    cases += [("past", 0, past_cluster_args(dev, p), p)
+              for p in ("f64", "f32")]
+    for label, seed, args, precision in cases:
+        got = ops.waterfill_rates(**args, precision=precision,
+                                  lanes=wf_lanes(args, precision))
+        want = ops.waterfill_rates(**to_cpu(args), precision=precision)
+        got = got.cpu()
+        name = f"waterfill_{precision}_cluster"
+        errs[name] = max(errs.get(name, 0.0),
+                         float((got - want).abs().max()))
+        if precision == "f64":
+            check(torch.equal(got, want), f"f64 cluster kernel != plain "
+                  f"({label}, seed {seed})")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        n += 1
+    ns_add = add_chain_ns()
+    times = {}
+    for label, args in (("fleet", fleet),
+                        ("sim", wf_inputs(shapes["sim"], dev, torch.float64)),
+                        ("past", past_cluster_args(dev, "f64"))):
+        nc, nv = args["caps"].shape[0], args["eg_cap"].shape[0]
+        ne = args["ed_cap"].shape[0]
+        segs = ops.build_segments(args["src"], args["dst"], args["eid"], nv,
+                                  ne)
+        lanes = wf_lanes(args, "f64")
+        kw = dict(args, n_vms=nv, n_edges=ne)
+
+        def kernel():
+            return ops.waterfill_rates(**args, segments=segs, lanes=lanes)
+        rounds, chain = live_rounds(args, "f64")
+        bound, by, terms = wf_bound(args, rounds, "f64", chain)
+        ms = kernel_ms(kernel, 50)
+        plan = ops.cluster_plan(nc, nv, ne)
+        times[label] = dict(
+            conns=nc, vms=nv, edges=ne, k=plan.k, block_bytes=plan.block_bytes,
+            lanes_shared=plan.lanes_shared, rounds=rounds, chain=chain,
+            ms=ms, ns_per_chained_add=ms * 1e6 / max(chain, 1),
+            call_ms=cuda_ms(kernel, 200),
+            plain_ms=cuda_ms(lambda: ref.masked_maxmin_rates(**kw), 3),
+            bound_ms=bound, bound_by=by, bound_terms_ms=terms,
+            chain_share=terms["chain"] / ms,
+            clocks=cluster_clocks(args, "f64"),
+        )
+    say("waterfill_cluster", cases=n, f64_bitwise=True,
+        add_chain_ns=ns_add, max_abs_err={
+            k: v for k, v in errs.items() if "cluster" in k}, times=times)
+    return times
 
 
 def phase_plan(top):
@@ -797,7 +925,9 @@ def fleet_jobs(top):
 def phase_sim_fleet(top):
     """The fleet on the card, every solve past one block's shared memory:
     held field for field, Skytrace stream and all, against its CPU run;
-    every water-filling launch takes the device-memory variant."""
+    every water-filling launch takes the cluster kernel. CUDA events around
+    every block of iterations give the device time an iteration and the
+    card's idle share (as ``[sim_1e5]``)."""
     from repro_torch.kernels.waterfill import ops
     from repro_torch.obs.metrics import REGISTRY
     from repro_torch.transfer.events import materialize_jobs
@@ -806,30 +936,37 @@ def phase_sim_fleet(top):
     su = materialize_jobs(jobs)
     nc = -(-su.conn_job.shape[0] // 8) * 8
     nv, ne = su.vm_eg_cap.shape[0], len(su.edges_used)
-    check(ops.lanes_in_device_memory(nc, nv, ne),
+    check(ops.needs_cluster(nc, nv, ne),
           "the fleet's solves fit one block's shared memory")
-    glob = REGISTRY.counter("kernels.waterfill_f64_global.launches")
+    cluster = REGISTRY.counter("kernels.waterfill_f64_cluster.launches")
     shared = REGISTRY.counter("kernels.waterfill_f64.launches")
-    n0, s0, g0 = glob.value, shared.value, graph_counts()
-    card, wall, card_tr = traced_sim(jobs, [])
+    n0, s0, g0 = cluster.value, shared.value, graph_counts()
+    with timed_blocks() as spans:
+        card, wall, card_tr = traced_sim(jobs, [])
     graphs = graph_delta(g0)
-    launches, shared_launches = glob.value - n0, shared.value - s0
+    launches, shared_launches = cluster.value - n0, shared.value - s0
+    busy_ms = sum(a.elapsed_time(b) for a, b, *_ in spans)
     cpu, cpu_wall, cpu_tr = traced_sim(jobs, [], device="cpu")
     same_run(card, cpu, "fleet")
     check(card_tr == cpu_tr, "fleet: card and CPU Skytrace streams differ")
     check(all(j.status == "done" for j in card.jobs), "a fleet job failed")
     iterations = graphs["iterations"]
     check(launches == iterations and shared_launches == 0,
-          f"fleet: {launches} device-memory and {shared_launches} "
-          f"shared-memory solves over {iterations} iterations")
+          f"fleet: {launches} cluster and {shared_launches} one-block "
+          f"solves over {iterations} iterations")
+    plan = ops.launch_plan(nc, nv, ne)
     say("sim_fleet", jobs=len(jobs), lanes=nc, vms=nv, edges=ne,
-        smem_bytes_all_shared=ops.smem_bytes(nc, nv, ne, 8),
-        smem_limit=ops.SMEM_LIMIT, events=card.events,
+        smem_bytes_one_block=ops.smem_bytes(nc, nv, ne, 8),
+        smem_limit=ops.SMEM_LIMIT, cluster_k=plan.k,
+        cluster_block_bytes=plan.block_bytes, events=card.events,
         sim_time_s=card.time_s, wall_s=round(wall, 4),
         events_per_s=round(card.events / wall, 1),
         cpu_wall_s=round(cpu_wall, 4), asdict_equal_cpu=True,
-        trace_equal_cpu=True, waterfill_global_launches=int(launches),
-        graphs=graphs)
+        trace_equal_cpu=True, waterfill_cluster_launches=int(launches),
+        blocks=len(spans), blocks_device_s=busy_ms / 1e3,
+        device_us_per_iteration=busy_ms * 1e3 / iterations,
+        replay_us_per_iteration=replay_us(spans),
+        device_idle_share=1.0 - busy_ms / 1e3 / wall, graphs=graphs)
 
 
 def big_jobs(top):
@@ -846,25 +983,36 @@ def big_jobs(top):
 @contextlib.contextmanager
 def timed_blocks():
     """CUDA events on the sim's stream around every block of iterations it
-    runs (a graph replay, or the eager first use of a block length);
-    yields the list of (start, end) event pairs."""
+    runs (a graph replay, or the eager first use of a block length, or its
+    capture and first replay); yields the list of (start, end, iterations,
+    replayed) per block."""
     from repro_torch.transfer import flowsim_torch
 
     spans, run = [], flowsim_torch._Blocks.run
 
     def timed(self, n):
+        replayed = self.graphs.get(n) is not None
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         run(self, n)
         b.record()
-        spans.append((a, b))
+        spans.append((a, b, n, replayed))
 
     flowsim_torch._Blocks.run = timed
     try:
         yield spans
     finally:
         flowsim_torch._Blocks.run = run
+
+
+def replay_us(spans) -> float:
+    """Device µs an iteration over the replayed blocks alone: the graphs'
+    own kernels, without the host's launch gaps that an eager block's or
+    a capture's span holds."""
+    ms = sum(a.elapsed_time(b) for a, b, _, replayed in spans if replayed)
+    n = sum(n for _, _, n, replayed in spans if replayed)
+    return ms * 1e3 / n if n else float("nan")
 
 
 def phase_sim_1e5(jobs):
@@ -888,7 +1036,7 @@ def phase_sim_1e5(jobs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     graphs = graph_delta(g0)
-    busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+    busy_ms = sum(a.elapsed_time(b) for a, b, *_ in spans)
     loop_ms = spans[0][0].elapsed_time(spans[-1][1])
     job = res.jobs[0]
     check(job.status == "done" and job.chunks_delivered == BIG_CHUNKS,
@@ -903,7 +1051,8 @@ def phase_sim_1e5(jobs):
         waterfill_launches=launches, segsum_launches=int(ss.value - s0),
         graphs=graphs, blocks=len(spans), blocks_device_s=busy_ms / 1e3,
         device_us_per_iteration=busy_ms * 1e3 / graphs["iterations"],
-        loop_s=loop_ms / 1e3, device_idle_share=1.0 - busy_ms / 1e3 / wall,
+        replay_us_per_iteration=replay_us(spans), loop_s=loop_ms / 1e3,
+        device_idle_share=1.0 - busy_ms / 1e3 / wall,
         device_idle_share_loop=1.0 - busy_ms / loop_ms)
 
 
@@ -1063,7 +1212,7 @@ def phase_service(name, suite, top, counters, extra=None,
     graphs = graph_delta(g0)
     launches = {k: int(REGISTRY.counter(c).value - before[k])
                 for k, c in counters.items()}
-    busy_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    busy_s = sum(a.elapsed_time(b) for a, b, *_ in spans) / 1e3
     t0 = time.perf_counter()
     cpu = (cpu_suite or suite)(top, backend="torch", device="cpu",
                                engine="soa")
@@ -1432,7 +1581,7 @@ def phase_service_kernels(reps: dict, dev, errs) -> None:
         shapes[label] = {"conns": int(su.conn_job.shape[0]),
                          "vms": int(su.vm_eg_cap.shape[0]),
                          "edges": len(su.edges_used),
-                         "device_memory": ops.lanes_in_device_memory(
+                         "cluster": ops.needs_cluster(
                              -(-su.conn_job.shape[0] // 8) * 8,
                              su.vm_eg_cap.shape[0], len(su.edges_used))}
         shapes[label]["cases"] = hold_sim_kernels(label, su, dev, errs)
@@ -1496,7 +1645,7 @@ def phase_profile(jobs):
         top_device_us={k: round(v, 1) for k, v in top})
 
 
-def phase_kernels(shapes, dev, launches, errs):
+def phase_kernels(shapes, dev, launches, errs, cluster_times):
     from repro_torch.kernels.waterfill import ops, ref
 
     out, extra = [], {}
@@ -1528,60 +1677,34 @@ def phase_kernels(shapes, dev, launches, errs):
             want = ops.waterfill_rates(**to_cpu(args), precision=precision)
             errs[name] = max(errs[name], float((got - want).abs().max()))
             rounds, chain = live_rounds(args, precision)
-            bound, by = wf_bound(args, rounds, precision)
+            # the chain term is f64 adds: the f64 kernel's alone
+            _, _, terms = wf_bound(args, rounds, precision,
+                                   chain if precision == "f64" else 0)
             ms = kernel_ms(kernel, 50)
             per_shape[label] = dict(
                 conns=args["caps"].shape[0], vms=args["eg_cap"].shape[0],
-                edges=args["ed_cap"].shape[0], rounds=rounds, chain=chain,
-                ms=ms, ns_per_chained_add=ms * 1e6 / max(chain, 1),
+                edges=args["ed_cap"].shape[0], rounds=rounds, ms=ms,
                 call_ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 5),
-                bound_ms=bound, bound_by=by,
+                bound_terms_ms=terms,
             )
-        main = per_shape["sim"]
-        out.append(dict(
-            name=name, route="cuda", source=WF_SOURCE, replaces=WF_TPU,
-            launches=launches[name], max_abs_err=errs[name], ms=main["ms"],
-            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-            bound_by=main["bound_by"], library_ms=None,
-            call_ms=main["call_ms"],
-        ))
+            if "chain" in terms:
+                per_shape[label].update(
+                    chain=chain, ns_per_chained_add=ms * 1e6 / max(chain, 1),
+                    chain_share=terms["chain"] / ms)
+        out.append(kernel_entry(name, WF_TPU, launches[name], errs[name],
+                                per_shape["sim"]))
         extra[name] = per_shape
-    # the device-memory variant (f64, the sim's solver) at the sim's shape
-    # and at the fleet's, where the fleet sim ran it
-    per_shape = {}
-    for label in ("sim", "fleet"):
-        args = wf_inputs(shapes[label], dev, torch.float64)
-        nv, ne = args["eg_cap"].shape[0], args["ed_cap"].shape[0]
-        segs = ops.build_segments(args["src"], args["dst"], args["eid"], nv,
-                                  ne)
-        lanes = wf_lanes(args, "f64")
-        kw = dict(args, n_vms=nv, n_edges=ne)
-
-        def kernel():
-            return ops.waterfill_rates(**args, segments=segs, lanes=lanes)
-        got = kernel().cpu()
-        want = ops.waterfill_rates(**to_cpu(args))
-        check(torch.equal(got, want), f"device-memory variant ({label})")
-        rounds, chain = live_rounds(args, "f64")
-        bound, by = wf_bound(args, rounds, "f64")
-        ms = kernel_ms(kernel, 50)
-        per_shape[label] = dict(
-            conns=args["caps"].shape[0], vms=nv, edges=ne, rounds=rounds,
-            chain=chain, ms=ms, ns_per_chained_add=ms * 1e6 / max(chain, 1),
-            call_ms=cuda_ms(kernel, 200),
-            plain_ms=cuda_ms(lambda: ref.masked_maxmin_rates(**kw), 3),
-            bound_ms=bound, bound_by=by,
-        )
-    main = per_shape["fleet"]
+    # the cluster kernel (f64, the sim's solver) at the fleet's shape,
+    # where the fleet sim ran it, timed by [waterfill_cluster]
+    name = "waterfill_f64_cluster"
     out.append(dict(
-        name="waterfill_f64_global", route="cuda", source=WF_SOURCE,
-        replaces=WF_TPU, launches=launches["waterfill_f64_global"],
-        max_abs_err=errs["waterfill_f64_global"], ms=main["ms"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=None, call_ms=main["call_ms"],
-        sim_shape_ms=per_shape["sim"]["ms"],
+        kernel_entry(name, WF_TPU, launches[name], errs[name],
+                     cluster_times["fleet"]),
+        k=cluster_times["fleet"]["k"],
+        sim_shape_ms=cluster_times["sim"]["ms"],
+        past_cluster_memory_ms=cluster_times["past"]["ms"],
     ))
-    extra["waterfill_f64_global"] = per_shape
+    extra[name] = cluster_times
     # ordered segment sum at the sim's per-(job, edge) map
     ne = len(su.edges_used)
     je = torch.as_tensor(su.conn_job * ne + su.conn_edge, device=dev)
@@ -1595,7 +1718,6 @@ def phase_kernels(shapes, dev, launches, errs):
     errs["segsum_ordered_f64"] = max(errs["segsum_ordered_f64"],
                                      float((got - want).abs().max()))
     nbytes = n * 8 + n * 4 + (nseg + 1) * 4 + nseg * 8
-    t_b, t_o = nbytes / HBM_BYTES_S, n / PEAK_OPS["f64"]
 
     def segsum():
         return ops.segment_sum_ordered(w, je, nseg, lists=lists)
@@ -1603,24 +1725,46 @@ def phase_kernels(shapes, dev, launches, errs):
     seg_ms = kernel_ms(segsum, 50)
     # the longest segment's nonzero terms: its chain of dependent adds
     chain = int(np.bincount(je.cpu().numpy()[w.cpu().numpy() != 0]).max())
+    terms = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+             "operations": n / PEAK_OPS["f64"] * 1e3,
+             "chain": chain * add_chain_ns() * 1e-6}
+    seg = dict(ms=seg_ms, plain_ms=cuda_ms(
+        lambda: ref.segment_sum_ordered(w, je, nseg), 500),
+        bound_terms_ms=terms, chain_share=terms["chain"] / seg_ms,
+        call_ms=cuda_ms(segsum, 500))
     out.append(dict(
-        name="segsum_ordered_f64", route="cuda", source=WF_SOURCE,
-        replaces=SEGSUM_REPLACES, launches=launches["segsum_ordered_f64"],
-        max_abs_err=errs["segsum_ordered_f64"],
-        ms=seg_ms,
-        plain_ms=cuda_ms(lambda: ref.segment_sum_ordered(w, je, nseg), 500),
-        bound_ms=max(t_b, t_o) * 1e3,
-        bound_by="bytes" if t_b >= t_o else "operations",
+        kernel_entry("segsum_ordered_f64", SEGSUM_REPLACES,
+                     launches["segsum_ordered_f64"],
+                     errs["segsum_ordered_f64"], seg),
         library_ms=cuda_ms(
             lambda: torch.zeros(nseg, dtype=torch.float64, device=dev)
             .index_add_(0, je, w), 500),
-        call_ms=cuda_ms(segsum, 500),
     ))
     extra["segsum_ordered_f64"] = {
         "lanes": n, "segments": nseg, "chain": chain,
         "ns_per_chained_add": seg_ms * 1e6 / chain,
     }
     return out, extra
+
+
+def kernel_entry(name, replaces, launches, err, t) -> dict:
+    """A sim kernel's entry in the kernels line, from its timing ``t``: the
+    contract's bound is the larger of its bytes and operations terms;
+    where a chain term was computed (its dependent f64 adds at the card's
+    measured time per add), it and the kernel's share of it stand beside
+    it."""
+    terms = t["bound_terms_ms"]
+    by = "bytes" if terms["bytes"] >= terms["operations"] else "operations"
+    entry = dict(
+        name=name, route="cuda", source=WF_SOURCE, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=terms[by], bound_by=by,
+        library_ms=None, call_ms=t["call_ms"],
+    )
+    if "chain" in terms:
+        entry.update(chain_bound_ms=terms["chain"],
+                     chain_share=t["chain_share"])
+    return entry
 
 
 # ------------------------------------------------------------- model path
@@ -3778,7 +3922,7 @@ def main(argv=None) -> int:
         "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
         "sim_1e5": materialize_jobs(big_jobs(top)),
     }, dev, errs)
-    phase_waterfill_global({
+    cluster_times = phase_waterfill_cluster({
         "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
         "fleet": fleet_su,
     }, dev, errs)
@@ -3787,7 +3931,7 @@ def main(argv=None) -> int:
     counters = {
         "waterfill_f64": "kernels.waterfill_f64.launches",
         "waterfill_f32": "kernels.waterfill_f32.launches",
-        "waterfill_f64_global": "kernels.waterfill_f64_global.launches",
+        "waterfill_f64_cluster": "kernels.waterfill_f64_cluster.launches",
         "segsum_ordered_f64": "kernels.segsum_ordered.launches",
     }
     for c in counters.values():
@@ -3826,7 +3970,7 @@ def main(argv=None) -> int:
                   "sim_1e5": materialize_jobs(big), "fleet": fleet_su}
     kernels, shapes = phase_kernels(sim_shapes, dev, {
         k: n + service_launches[k] + cal_launches[k]
-        for k, n in launches.items()}, errs)
+        for k, n in launches.items()}, errs, cluster_times)
     for k in kernels:
         k["launches_by_path"] = {"sim": launches[k["name"]],
                                  "service": service_launches[k["name"]],

@@ -25,17 +25,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = _WATERFILL_ARGS
         fn.restype = _I
-        fn = getattr(lib, f"{name}_global")  # + the per-lane scratch
-        fn.argtypes = [_P] + _WATERFILL_ARGS
+        # + the lane scratch before `out`, the clocks before the stream
+        fn = getattr(lib, f"{name}_cluster")
+        fn.argtypes = [_P] * 18 + [_I] * 5 + [_P, _P]
         fn.restype = _I
     lib.segsum_ordered_f64.argtypes = [_P, _P, _P, _P, _I, _P]
     lib.segsum_ordered_f64.restype = _I
+    lib.f64_add_chain.argtypes = [_P, _P, _I, _P]
+    lib.f64_add_chain.restype = _I
     lib.waterfill_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.waterfill_smem_bytes.restype = ctypes.c_size_t
     lib.waterfill_smem_limit.argtypes = [_I]
     lib.waterfill_smem_limit.restype = ctypes.c_size_t
     lib.waterfill_scratch_bytes.argtypes = [_I, _I]
     lib.waterfill_scratch_bytes.restype = ctypes.c_size_t
+    lib.waterfill_cluster_smem_bytes.argtypes = [_I] * 6
+    lib.waterfill_cluster_smem_bytes.restype = ctypes.c_size_t
+    lib.waterfill_cluster_plan.argtypes = [_I] * 5
+    lib.waterfill_cluster_plan.restype = _I
+    lib.waterfill_cluster_max.argtypes = []
+    lib.waterfill_cluster_max.restype = _I
 
 
 LIBRARY = Library(SOURCE, NVCC_FLAGS, _declare)

@@ -7,11 +7,14 @@ and no fallback. Each launch adds one to its kernel's counter in the
 port's metrics registry (``kernels.waterfill_f64.launches``,
 ``kernels.waterfill_f32.launches``, ``kernels.segsum_ordered.launches``);
 CPU calls do not count. A solve whose lanes do not fit one block's shared
-memory takes the kernel's device-memory variant when the caller hands it
-a scratch buffer (``lanes``, of ``scratch_bytes``); the sim decides that
-once per scenario by ``lanes_in_device_memory``, a mirror of the
-library's own size rule, and the variant counts on
-``kernels.waterfill_{f64,f32}_global.launches``. A call under CUDA stream
+memory takes the cluster kernel (one thread-block cluster of 2 to 16
+blocks per solve) when the caller hands it a lane scratch (``lanes``, of
+``scratch_bytes``, which the kernel uses only where the largest cluster's
+shared memory cannot hold the lanes); the sim decides that once per
+scenario by ``needs_cluster``, a mirror of the library's own size rule
+(``cluster_plan`` mirrors the cluster's size K and its bytes a block),
+and the cluster kernel counts on
+``kernels.waterfill_{f64,f32}_cluster.launches``. A call under CUDA stream
 capture records the kernel into a graph and launches nothing: it adds one
 to the kernel's ``.recorded`` counter instead, and whoever replays the
 graph adds the launches it recorded to ``.launches`` at each replay
@@ -38,15 +41,15 @@ _DTYPES = {"f64": torch.float64, "f32": torch.float32}
 _launches = {
     p: REGISTRY.counter(f"kernels.waterfill_{p}.launches") for p in _DTYPES
 }
-_global_launches = {
-    p: REGISTRY.counter(f"kernels.waterfill_{p}_global.launches")
+_cluster_launches = {
+    p: REGISTRY.counter(f"kernels.waterfill_{p}_cluster.launches")
     for p in _DTYPES
 }
 _segsum_launches = REGISTRY.counter("kernels.segsum_ordered.launches")
 # (recorded under capture, launched) counter pairs of every kernel here
 GRAPH_COUNTERS = tuple(
     (REGISTRY.counter(c.name.replace(".launches", ".recorded")), c)
-    for c in (*_launches.values(), *_global_launches.values(),
+    for c in (*_launches.values(), *_cluster_launches.values(),
               _segsum_launches)
 )
 _recorded = {c.name: r for r, c in GRAPH_COUNTERS}
@@ -61,33 +64,90 @@ def _count(launches: Counter) -> None:
         launches.inc()
 
 
-# csrc/waterfill.cu's launch shape and shared-memory layout, mirrored so
-# that a caller picks the kernel variant without loading the library (a
-# card test holds the mirror equal to the library's own functions)
+# csrc/waterfill.cu's launch shapes and shared-memory layouts, mirrored so
+# that a caller picks the kernel without loading the library (a card test
+# holds the mirror equal to the library's own functions)
 SMEM_LIMIT = 232448  # dynamic shared memory one block may take (227 KB)
 _WARPS, _RUN = 12, 256
+_C_WARPS, _C_RUN, _RING, _RING_CHUNK = 16, 128, 4, 512
+MAX_CLUSTER = 16  # blocks, where the card holds one such cluster (else 8)
 _ELEM = {"f64": 8, "f32": 4}
 
 
 def smem_bytes(nc: int, nv: int, ne: int, elem: int) -> int:
-    """Shared memory of one solve with every lane in it (``nc`` 0: the
-    device-memory variant's), as ``waterfill_smem_bytes`` computes it."""
+    """Shared memory of one solve in one block, every lane in it, as
+    ``waterfill_smem_bytes`` computes it."""
     nseg = 2 * nv + ne
     reals = _WARPS * (1 + _RUN + 8) + 2 * nc + 2 * nseg
     ints = _WARPS + 1 + nseg
     return (reals * elem + ints * 4 + nc + 15) & ~15
 
 
+def cluster_smem_bytes(nc: int, nv: int, ne: int, elem: int, k: int,
+                       lanes_shared: bool) -> int:
+    """Shared memory of one block of a ``k``-block cluster, with its share
+    of the lanes (``lanes_shared``) or none, as
+    ``waterfill_cluster_smem_bytes`` computes it."""
+    nseg = 2 * nv + ne
+    nown = -(-nseg // k)
+    lanes = -(-nc // k) if lanes_shared else 0
+    reals = (_C_WARPS + 1 + nseg + nown + _RING * (_RING_CHUNK + 8)
+             + _C_WARPS * (_C_RUN + 8) + 2 * lanes)
+    ints = _C_WARPS + 5 + 2 * _RING + 5 * nown
+    return (16 * _RING + reals * elem + ints * 4 + lanes + 15) & ~15
+
+
+class LaunchPlan(NamedTuple):
+    """The kernel a solve takes (``waterfill_{p}`` or
+    ``waterfill_{p}_cluster``), its blocks, each block's shared memory, and
+    whether the lanes live there (else in the caller's scratch)."""
+
+    kernel: str
+    k: int
+    block_bytes: int
+    lanes_shared: bool
+
+
+def cluster_plan(nc: int, nv: int, ne: int, precision: str = "f64",
+                 max_k: int = MAX_CLUSTER) -> LaunchPlan:
+    """The cluster kernel's size rule (``waterfill_cluster_plan``): the
+    smallest K of 2, 4, 8 and, up to ``max_k``, 16 whose blocks hold the
+    lanes; past that ``max_k`` blocks with the lanes in device memory.
+    Raises where not even the segments fit a block."""
+    elem = _ELEM[precision]
+    name = f"waterfill_{precision}_cluster"
+    k = 2
+    while k <= max_k:
+        b = cluster_smem_bytes(nc, nv, ne, elem, k, True)
+        if b <= SMEM_LIMIT:
+            return LaunchPlan(name, k, b, True)
+        k *= 2
+    b = cluster_smem_bytes(nc, nv, ne, elem, max_k, False)
+    if b > SMEM_LIMIT:
+        raise ValueError(f"{nv} VMs and {ne} edges do not fit one block's "
+                         "shared memory")
+    return LaunchPlan(name, max_k, b, False)
+
+
 def scratch_bytes(nc: int, elem: int) -> int:
-    """The device-memory variant's per-lane scratch (cap, rate, state)."""
+    """The cluster kernel's lane scratch (cap, rate, state per lane)."""
     return (2 * nc * elem + nc + 15) & ~15
 
 
-def lanes_in_device_memory(nc: int, nv: int, ne: int,
-                           precision: str = "f64") -> bool:
-    """Whether a solve of this size needs the device-memory variant: its
-    lanes do not fit one block's shared memory."""
+def needs_cluster(nc: int, nv: int, ne: int, precision: str = "f64") -> bool:
+    """Whether a solve of this size takes the cluster kernel: its lanes do
+    not fit one block's shared memory."""
     return smem_bytes(nc, nv, ne, _ELEM[precision]) > SMEM_LIMIT
+
+
+def launch_plan(nc: int, nv: int, ne: int,
+                precision: str = "f64") -> LaunchPlan:
+    """What the sim launches for a solve of this size: one block where the
+    lanes fit its shared memory, else ``cluster_plan``'s cluster."""
+    if not needs_cluster(nc, nv, ne, precision):
+        return LaunchPlan(f"waterfill_{precision}", 1,
+                          smem_bytes(nc, nv, ne, _ELEM[precision]), True)
+    return cluster_plan(nc, nv, ne, precision)
 
 
 class Segments(NamedTuple):
@@ -142,7 +202,8 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
                     active=None, *, precision: str = "f64",
                     n_edges_bound: int | None = None, changed=None,
                     prev=None, segments: Segments | None = None,
-                    lanes: torch.Tensor | None = None) -> torch.Tensor:
+                    lanes: torch.Tensor | None = None,
+                    clocks: torch.Tensor | None = None) -> torch.Tensor:
     """Max-min fair per-connection rates over the ``active`` lanes.
 
     caps/src/dst/eid/active are per-connection lanes [NC]; eg_cap/in_cap
@@ -161,10 +222,13 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     on the card the kernel reads the flag itself, so nothing syncs.
 
     ``lanes`` (uint8, at least ``scratch_bytes(nc, elem)``, on the caps'
-    device) runs the kernel's device-memory variant, which keeps each
-    lane's cap, rate and state there and so takes any lane count; without
-    it a solve past one block's shared memory raises. The CPU's plain
-    version ignores it.
+    device) runs the cluster kernel: one cluster of ``cluster_plan``'s K
+    blocks, the lanes in their shared memory, or in ``lanes`` past the
+    largest cluster's, so any lane count solves; without it a solve past
+    one block's shared memory raises. ``clocks`` (int64 [128], zeroed, on
+    the card) receives the cluster kernel's cycles per pass (the layout of
+    ``csrc/waterfill.cu``'s ``Clock``). The CPU's plain version ignores
+    both.
     """
     refuse_dtensor("water-filling", caps, src, dst, eg_cap, in_cap, eid,
                    ed_cap, active)
@@ -222,12 +286,22 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
         if lanes.shape[0] < lib.waterfill_scratch_bytes(nc, elem):
             raise ValueError(f"lanes holds {lanes.shape[0]} bytes, fewer "
                              f"than {nc} connections need")
-    if (lib.waterfill_smem_bytes(0 if lanes is not None else nc, nv, ne,
-                                 elem) > lib.waterfill_smem_limit(elem)):
-        what = "" if lanes is not None else f"{nc} connections, "
+        kmax = lib.waterfill_cluster_max()
+        if kmax < 0:
+            raise RuntimeError(f"the cluster size query failed: CUDA error "
+                               f"{-kmax}")
+        if lib.waterfill_cluster_plan(nc, nv, ne, elem, kmax) == 0:
+            raise ValueError(f"{nv} VMs and {ne} edges do not fit one "
+                             "block's shared memory")
+        if clocks is not None:
+            _check(clocks, "clocks", torch.int64, 128, dev)
+    elif clocks is not None:
+        raise ValueError("clocks go with the cluster kernel (lanes)")
+    elif lib.waterfill_smem_bytes(nc, nv, ne, elem) > lib.waterfill_smem_limit(
+            elem):
         raise ValueError(
-            f"{what}{nv} VMs and {ne} edges do not fit one block's shared "
-            "memory"
+            f"{nc} connections, {nv} VMs and {ne} edges do not fit one "
+            "block's shared memory"
         )
     if segments is None:
         segments = build_segments(src, dst, eid if ne else None, nv, ne)
@@ -240,19 +314,19 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
 
     name = f"waterfill_{precision}"
     if lanes is not None:
-        name, scratch = f"{name}_global", (ptr(lanes),)
+        name, scratch, clk = f"{name}_cluster", (ptr(lanes),), (ptr(clocks),)
     else:
-        scratch = ()
+        scratch = clk = ()
     rc = getattr(lib, name)(
         ptr(caps), ptr(src), ptr(dst), ptr(eid), ptr(eg_cap), ptr(in_cap),
         ptr(ed_cap), ptr(active), ptr(changed), ptr(prev),
         *(ptr(t) for t in segments), *scratch, ptr(out), nc, nv, ne,
-        n_edges_bound, -1 if precision == "f64" else n_iters,
+        n_edges_bound, -1 if precision == "f64" else n_iters, *clk,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count((_launches if lanes is None else _global_launches)[precision])
+    _count((_launches if lanes is None else _cluster_launches)[precision])
     return out
 
 

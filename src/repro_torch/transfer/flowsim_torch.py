@@ -130,9 +130,9 @@ class _Cn:
     dst32: torch.Tensor
     eid32: torch.Tensor
     segs: wf.Segments  # CSR lists of the maps above
-    # the water-filling kernel's per-lane scratch when a solve's lanes do
-    # not fit one block's shared memory (its device-memory variant), else
-    # None; allocated once here, outside any graph capture
+    # the water-filling cluster kernel's lane scratch when a solve's lanes
+    # do not fit one block's shared memory, else None; allocated once here,
+    # outside any graph capture
     wf_lanes: torch.Tensor | None
     je: torch.Tensor  # [NCp] job * NE + edge
     je_lists: tuple  # CSR lists of je
@@ -500,11 +500,11 @@ def _segment(st: _St, cn: _Cn, sc: _Sc, block: int,
 
 # ------------------------------------------------------------------ host side
 def _wf_lanes(ncp: int, nv: int, ne: int, solver: str, dev):
-    """The scratch that sends every solve of this scenario to the
-    water-filling kernel's device-memory variant, where its lanes do not
-    fit one block's shared memory; None where they do. The CPU's plain
-    solver ignores it."""
-    if not wf.lanes_in_device_memory(ncp, nv, ne, solver):
+    """The lane scratch that sends every solve of this scenario to the
+    water-filling cluster kernel, where its lanes do not fit one block's
+    shared memory; None where they do. The CPU's plain solver ignores
+    it."""
+    if not wf.needs_cluster(ncp, nv, ne, solver):
         return None
     n = wf.scratch_bytes(ncp, 8 if solver == "f64" else 4)
     return torch.empty(n, dtype=torch.uint8, device=dev)

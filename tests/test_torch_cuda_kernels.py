@@ -181,30 +181,42 @@ def test_waterfill_takes_the_solves_an_all_shared_layout_took(nv, ne):
 
 @pytest.mark.gpu
 def test_waterfill_size_mirror_equals_the_library():
-    """``ops.smem_bytes``, ``ops.scratch_bytes`` and ``ops.SMEM_LIMIT``,
-    which the sim uses to pick a kernel without loading the library, are
-    the library's own numbers."""
+    """``ops.smem_bytes``, ``ops.cluster_smem_bytes``, ``ops.cluster_plan``,
+    ``ops.scratch_bytes`` and ``ops.SMEM_LIMIT``, which the sim uses to pick
+    a kernel without loading the library, are the library's own numbers,
+    and this card holds the largest cluster the mirror assumes."""
     _need_card()
     from repro_torch.kernels.waterfill.build import load
 
     lib = load()
-    for elem in (8, 4):
+    assert lib.waterfill_cluster_max() == wf_ops.MAX_CLUSTER
+    for elem, p in ((8, "f64"), (4, "f32")):
         assert lib.waterfill_smem_limit(elem) == wf_ops.SMEM_LIMIT
         for nc, nv, ne in ((0, 8, 2), (1, 1, 0), (600, 20, 1),
-                           (12_345, 64, 16), (24_576, 768, 3)):
+                           (12_345, 64, 16), (24_576, 768, 3),
+                           (262_144, 64, 16), (600_000, 3_000, 40)):
             assert (wf_ops.smem_bytes(nc, nv, ne, elem)
                     == lib.waterfill_smem_bytes(nc, nv, ne, elem))
             assert (wf_ops.scratch_bytes(nc, elem)
                     == lib.waterfill_scratch_bytes(nc, elem))
+            for k in (2, 4, 8, 16):
+                for shared in (True, False):
+                    assert (wf_ops.cluster_smem_bytes(nc, nv, ne, elem, k,
+                                                      shared)
+                            == lib.waterfill_cluster_smem_bytes(
+                                nc, nv, ne, elem, k, int(shared)))
+            for kmax in (8, 16):
+                plan = wf_ops.cluster_plan(nc, nv, ne, p, kmax)
+                assert lib.waterfill_cluster_plan(nc, nv, ne, elem, kmax) == (
+                    plan.k if plan.lanes_shared else -plan.k)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nv,ne", [(8, 2), (64, 16)])
 def test_device_memory_variant_bitwise_at_twice_the_limit(nv, ne):
     """Twice the lanes one block's shared memory takes: the shared entry
-    raises, the device-memory variant solves them bitwise equal to the
-    plain f64 version (f32 within its tolerance) and counts on its own
-    counter."""
+    raises, the cluster kernel solves them bitwise equal to the plain f64
+    version (f32 within its tolerance) and counts on its own counter."""
     _need_card()
     from repro_torch.kernels.waterfill.build import load
 
@@ -220,7 +232,7 @@ def test_device_memory_variant_bitwise_at_twice_the_limit(nv, ne):
         lanes = torch.empty(wf_ops.scratch_bytes(2 * lo, 8 if dtype ==
                                                  torch.float64 else 4),
                             dtype=torch.uint8, device="cuda")
-        count = REGISTRY.counter(f"kernels.waterfill_{precision}_global"
+        count = REGISTRY.counter(f"kernels.waterfill_{precision}_cluster"
                                  ".launches")
         shared = REGISTRY.counter(f"kernels.waterfill_{precision}.launches")
         n0, s0 = count.value, shared.value
@@ -233,6 +245,138 @@ def test_device_memory_variant_bitwise_at_twice_the_limit(nv, ne):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+CLUSTER_CASES = ("ragged", "idle_block", "segment_in_every_block",
+                 "edge_holds_every_lane", "changed", "past_cluster_memory",
+                 "captured_graph")
+
+
+def _cluster_args(name, precision):
+    """A solve for the cluster kernel, on the CPU: about twice the lanes one
+    block takes (8 VMs, 2 edges), shaped by ``name``. ``ragged``: a lane
+    count that K does not divide; ``idle_block``: only the first quarter
+    of the lanes active, so the other blocks hold none; ``segment_in_every
+    _block``: VM 0 sends on every seventh lane; ``edge_holds_every_lane``:
+    one edge; ``past_cluster_memory``: more lanes than a 16-block cluster's
+    shared memory holds (64 VMs, 16 edges), so they go to device memory."""
+    rng = np.random.default_rng(41)
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    elem = 8 if precision == "f64" else 4
+    nv, ne = (64, 16) if name == "past_cluster_memory" else (8, 2)
+    if name == "past_cluster_memory":
+        nc = 1
+        while wf_ops.cluster_plan(nc, nv, ne, precision).lanes_shared:
+            nc *= 2
+    else:
+        nc = 2 * _largest(lambda n: wf_ops.smem_bytes(n, nv, ne, elem)
+                          <= wf_ops.SMEM_LIMIT) + 3
+    src = rng.integers(0, nv, nc)
+    eid = rng.integers(0, ne, nc)
+    active = np.ones(nc, dtype=bool)
+    if name == "idle_block":
+        active[nc // 4:] = False
+    if name == "segment_in_every_block":
+        src = np.where(np.arange(nc) % 7 == 0, 0, rng.integers(1, nv, nc))
+    if name == "edge_holds_every_lane":
+        ne, eid = 1, np.zeros(nc, dtype=np.int64)
+    plan = wf_ops.cluster_plan(nc, nv, ne, precision)
+    assert (nc % plan.k != 0) or name != "ragged"
+    assert plan.lanes_shared == (name != "past_cluster_memory")
+    return dict(
+        caps=torch.tensor(rng.uniform(0.5, 8.0, nc), dtype=dtype),
+        src=torch.tensor(src, dtype=torch.int32),
+        dst=torch.tensor(rng.integers(0, nv, nc), dtype=torch.int32),
+        eg_cap=torch.tensor(rng.uniform(100, 900, nv), dtype=dtype),
+        in_cap=torch.tensor(rng.uniform(100, 900, nv), dtype=dtype),
+        eid=torch.tensor(eid, dtype=torch.int32),
+        ed_cap=torch.tensor(rng.uniform(500, 2000, ne), dtype=dtype),
+        active=torch.tensor(active),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("name", CLUSTER_CASES)
+def test_cluster_kernel_matches_plain_version_on_its_cases(name, precision):
+    """The cluster kernel against the plain version, f64 bit for bit and
+    f32 within 1e-5: a ragged lane count, a block with no active lane, a
+    segment whose lanes lie in every block, one edge holding every lane,
+    the ``changed`` flag (False returns ``prev`` unread, True solves), lanes
+    past the largest cluster's shared memory, and a launch recorded in a
+    CUDA graph and replayed. Each launch counts once on the cluster
+    kernel's counter (under capture on ``.recorded``)."""
+    _need_card()
+    a = _cluster_args(name, precision)
+    want = wf_ops.waterfill_rates(**a, precision=precision)
+    g = {k: t.cuda() for k, t in a.items()}
+    nc = a["caps"].shape[0]
+    lanes = torch.empty(wf_ops.scratch_bytes(nc, 8 if precision == "f64"
+                                             else 4),
+                        dtype=torch.uint8, device="cuda")
+    count = REGISTRY.counter(f"kernels.waterfill_{precision}_cluster"
+                             ".launches")
+    recorded = REGISTRY.counter(f"kernels.waterfill_{precision}_cluster"
+                                ".recorded")
+    n0, r0 = count.value, recorded.value
+    if name == "changed":
+        prev = torch.full((nc,), 3.25, dtype=want.dtype, device="cuda")
+        kept = wf_ops.waterfill_rates(
+            **g, precision=precision, lanes=lanes,
+            changed=torch.tensor(False, device="cuda"), prev=prev)
+        assert torch.equal(kept.cpu(), prev.cpu())
+        got = wf_ops.waterfill_rates(
+            **g, precision=precision, lanes=lanes,
+            changed=torch.tensor(True, device="cuda"), prev=prev)
+        assert count.value == n0 + 2
+    elif name == "captured_graph":  # the lists built outside, as the sim
+        segs = wf_ops.build_segments(g["src"], g["dst"], g["eid"],
+                                     g["eg_cap"].shape[0],
+                                     g["ed_cap"].shape[0])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the library built and configured
+            wf_ops.waterfill_rates(**g, precision=precision, lanes=lanes,
+                                   segments=segs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = wf_ops.waterfill_rates(**g, precision=precision,
+                                         lanes=lanes, segments=segs)
+        graph.replay()
+        assert (count.value, recorded.value) == (n0 + 1, r0 + 1)
+    else:
+        got = wf_ops.waterfill_rates(**g, precision=precision, lanes=lanes)
+        assert count.value == n0 + 1
+    got = got.cpu()
+    if precision == "f64":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cluster_kernel_without_scratch_or_past_the_segments_raises():
+    """No quiet fallback: a solve past one block without the lane scratch
+    raises before any launch, as does a cluster launch whose segments
+    alone do not fit a block; neither counts a launch."""
+    _need_card()
+    a = {k: t.cuda() for k, t in _cluster_args("ragged", "f64").items()}
+    count = REGISTRY.counter("kernels.waterfill_f64_cluster.launches")
+    shared = REGISTRY.counter("kernels.waterfill_f64.launches")
+    n0, s0 = count.value, shared.value
+    with pytest.raises(ValueError, match="shared memory"):
+        wf_ops.waterfill_rates(**a)
+    nv = 16_000  # 32,000 VM segments: the share replica alone is too big
+    b = dict(a, src=a["src"] % nv, dst=a["dst"] % nv,
+             eg_cap=torch.ones(nv, dtype=torch.float64, device="cuda"),
+             in_cap=torch.ones(nv, dtype=torch.float64, device="cuda"))
+    nc = a["caps"].shape[0]
+    lanes = torch.empty(wf_ops.scratch_bytes(nc, 8), dtype=torch.uint8,
+                        device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        wf_ops.waterfill_rates(**b, lanes=lanes)
+    assert (count.value, shared.value) == (n0, s0)
 
 
 @pytest.fixture(scope="module")
@@ -285,12 +429,12 @@ def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
 def test_card_sim_at_twice_the_shared_memory_limit_equals_cpu(port_top):
     """48 jobs of 8 VMs x 64 connections (24,576 lanes, twice what one
     block's shared memory takes): the card's sim runs every solve on the
-    device-memory variant and equals the CPU run field for field, with the
-    same Skytrace stream."""
+    cluster kernel and equals the CPU run field for field, with the same
+    Skytrace stream."""
     _need_card()
     jobs = fleet_jobs(port_top, 48)
     names = ("sim.iterations", "kernels.waterfill_f64.launches",
-             "kernels.waterfill_f64_global.launches")
+             "kernels.waterfill_f64_cluster.launches")
     before = {n: REGISTRY.counter(n).value for n in names}
     got, got_tr = _sim(jobs, [], {}, None)
     torch.cuda.synchronize()
@@ -302,7 +446,7 @@ def test_card_sim_at_twice_the_shared_memory_limit_equals_cpu(port_top):
     assert got_tr == want_tr
     assert all(j.status == "done" for j in got.jobs)
     assert d["kernels.waterfill_f64.launches"] == 0
-    assert d["kernels.waterfill_f64_global.launches"] == d["sim.iterations"]
+    assert d["kernels.waterfill_f64_cluster.launches"] == d["sim.iterations"]
     assert d["sim.iterations"] >= got.events
 
 

@@ -331,8 +331,9 @@ def test_sim_sends_solves_past_shared_memory_to_the_device_memory_variant(
     """The sim decides once, when it builds its state, which water-filling
     kernel its solves take: where the scenario's lanes do not fit one
     block's shared memory (by ``ops.smem_bytes``, the mirror of the
-    library's size rule), it allocates the device-memory variant's scratch
-    of ``ops.scratch_bytes``; otherwise none."""
+    library's size rule), it allocates the lane scratch of
+    ``ops.scratch_bytes`` that sends them to the cluster kernel, whose
+    cluster then holds the lanes in its shared memory; otherwise none."""
     from repro_torch.kernels.waterfill import ops as wf
     from repro_torch.transfer.events import materialize_jobs
     from repro_torch.transfer.simconfig import resolve
@@ -342,9 +343,12 @@ def test_sim_sends_solves_past_shared_memory_to_the_device_memory_variant(
     elem = 8 if solver == "f64" else 4
     fits = wf.smem_bytes(sc.ncp, sc.nv, sc.ne, elem) <= wf.SMEM_LIMIT
     assert fits == fit
+    plan = wf.launch_plan(sc.ncp, sc.nv, sc.ne, solver)
     if fits:
         assert cn.wf_lanes is None
+        assert plan.kernel == f"waterfill_{solver}" and plan.k == 1
     else:
         assert cn.wf_lanes.dtype == torch.uint8
         assert cn.wf_lanes.numel() == wf.scratch_bytes(sc.ncp, elem)
-        assert wf.smem_bytes(0, sc.nv, sc.ne, elem) <= wf.SMEM_LIMIT
+        assert plan.kernel == f"waterfill_{solver}_cluster"
+        assert plan.k in (2, 4) and plan.lanes_shared

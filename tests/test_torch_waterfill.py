@@ -187,3 +187,48 @@ def test_no_kernel_and_no_fallback_off_cpu_and_cuda():
         ops.waterfill_rates(z, i, i, z, z)
     with pytest.raises(ValueError):
         ops.segment_sum_ordered(z.double(), i, 2)
+
+
+# (label, nc, nv, ne, precision, kernel, K, bytes a block, lanes shared):
+# the block counts transcribed by hand from csrc/waterfill.cu's layouts
+# (one block: 12 warps' minima and runs of 256 + 8, cap and rate per lane,
+# budget and share per segment, 13 + nseg ints, a state byte per lane; a
+# cluster block: 64 bytes of ring mbarriers (4 full, 4 empty), 16 warps'
+# minima and runs of 128 + 8, the block's minimum, the share replica, owned
+# budgets, 4 ring slots of 512 + 8, cap and rate per own lane, 29 + 5 ints
+# per owned segment, a state byte per own lane; each rounded up to 16
+# bytes)
+SIZE_CASES = [
+    ("fig6_sim", 600, 20, 1, "f64", "waterfill_f64", 1, 36_512, True),
+    ("fleet", 24_576, 768, 3, "f64", "waterfill_f64_cluster", 4, 161_904,
+     True),
+    ("fleet_f32", 24_576, 768, 3, "f32", "waterfill_f32_cluster", 2,
+     152_512, True),
+    ("at_the_one_block_limit", 12_152, 8, 2, "f64", "waterfill_f64", 1,
+     232_448, True),
+    ("one_lane_past_it", 12_153, 8, 2, "f64", "waterfill_f64_cluster", 2,
+     138_080, True),
+    ("past_a_16_block_cluster", 262_144, 64, 16, "f64",
+     "waterfill_f64_cluster", 16, 35_776, False),
+]
+
+
+@pytest.mark.parametrize("case", SIZE_CASES, ids=[c[0] for c in SIZE_CASES])
+def test_size_mirror_picks_the_kernel_its_blocks_and_their_bytes(case):
+    """The Python mirror of the library's size rule (which a card test holds
+    equal to the library's own functions): which kernel a solve takes,
+    the cluster's K and each block's shared memory, at the Fig. 6 sim's
+    shape, the fleet's 24,576 lanes (768 VMs, 3 edges), exactly at the one
+    block's limit and one lane past it, and past what a 16-block cluster
+    holds (lanes in device memory)."""
+    _, nc, nv, ne, precision, kernel, k, nbytes, shared = case
+    plan = ops.launch_plan(nc, nv, ne, precision)
+    assert plan == (kernel, k, nbytes, shared)
+    assert ops.needs_cluster(nc, nv, ne, precision) == (k > 1)
+    assert nbytes <= ops.SMEM_LIMIT
+    if k > 1:
+        assert ops.cluster_plan(nc, nv, ne, precision) == plan
+        if k > 2 and shared:  # the smallest K whose blocks hold the lanes
+            smaller = ops.cluster_smem_bytes(nc, nv, ne, 8 if precision ==
+                                             "f64" else 4, k // 2, True)
+            assert smaller > ops.SMEM_LIMIT
