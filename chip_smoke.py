@@ -805,7 +805,8 @@ def fig6_jobs(top, plan):
 
 
 def traced_sim(jobs, faults, **kw):
-    """(result, wall seconds, Skytrace events) of one run."""
+    """(result, wall seconds, Skytrace events of the ``sim`` track) of one
+    run (the ``host`` track's wall spans differ between card and CPU)."""
     from repro_torch.obs import trace
     from repro_torch.transfer import simulate
 
@@ -815,7 +816,7 @@ def traced_sim(jobs, faults, **kw):
         res = simulate(jobs, faults, **kw)
         if kw.get("device") != "cpu":
             torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, tr.events()
+        return res, time.perf_counter() - t0, trace.on_track(tr.events())
     finally:
         trace.disable()
 
@@ -995,9 +996,10 @@ def timed_blocks():
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        run(self, n)
+        out = run(self, n)
         b.record()
         spans.append((a, b, n, replayed))
+        return out
 
     flowsim_torch._Blocks.run = timed
     try:

@@ -7,20 +7,11 @@ repro_torch.obs`` runs a seeded chaos scenario and exports its
 from __future__ import annotations
 
 from .export import text_timeline, to_chrome_trace, trace_json, write_trace
-from .metrics import (
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-    REGISTRY,
-    get_registry,
-)
+from .metrics import Counter, MetricsRegistry, REGISTRY, get_registry
 from .trace import Tracer, disable, enable, get_tracer
 
 __all__ = [
     "Counter",
-    "Gauge",
-    "Histogram",
     "MetricsRegistry",
     "REGISTRY",
     "Tracer",

@@ -47,74 +47,6 @@ class Counter:
         return self._value if self._value else None
 
 
-class Gauge:
-    """Last-written value; absent from snapshots until first ``set``."""
-
-    __slots__ = ("name", "_value", "_set", "_lock")
-
-    def __init__(self, name: str):
-        self.name = name
-        self._value = 0.0
-        self._set = False
-        self._lock = threading.Lock()
-
-    @property
-    def value(self):
-        return self._value
-
-    def set(self, v) -> None:
-        with self._lock:
-            self._value = v
-            self._set = True
-
-    def reset(self) -> None:
-        with self._lock:
-            self._value = 0.0
-            self._set = False
-
-    def _snapshot(self):
-        return self._value if self._set else None
-
-
-class Histogram:
-    """Count / total / min / max summary of observed values."""
-
-    __slots__ = ("name", "count", "total", "min", "max", "_lock")
-
-    def __init__(self, name: str):
-        self.name = name
-        self._lock = threading.Lock()
-        self._zero()
-
-    def _zero(self) -> None:
-        self.count = 0
-        self.total = 0.0
-        self.min = None
-        self.max = None
-
-    def observe(self, v) -> None:
-        v = float(v)
-        with self._lock:
-            self.count += 1
-            self.total += v
-            self.min = v if self.min is None else min(self.min, v)
-            self.max = v if self.max is None else max(self.max, v)
-
-    def reset(self) -> None:
-        with self._lock:
-            self._zero()
-
-    def _snapshot(self):
-        if not self.count:
-            return None
-        return {
-            "count": self.count,
-            "total": self.total,
-            "min": self.min,
-            "max": self.max,
-        }
-
-
 class MetricsRegistry:
     """Get-or-create home for every named instrument in the process."""
 
@@ -122,27 +54,12 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._instruments: dict = {}
 
-    def _get(self, name: str, cls):
+    def counter(self, name: str) -> Counter:
         with self._lock:
             m = self._instruments.get(name)
             if m is None:
-                m = cls(name)
-                self._instruments[name] = m
-            elif not isinstance(m, cls):
-                raise TypeError(
-                    f"metric {name!r} already registered as "
-                    f"{type(m).__name__}, not {cls.__name__}"
-                )
+                m = self._instruments[name] = Counter(name)
             return m
-
-    def counter(self, name: str) -> Counter:
-        return self._get(name, Counter)
-
-    def gauge(self, name: str) -> Gauge:
-        return self._get(name, Gauge)
-
-    def histogram(self, name: str) -> Histogram:
-        return self._get(name, Histogram)
 
     def names(self) -> list[str]:
         with self._lock:

@@ -32,6 +32,16 @@ How the loop runs without ``lax.while_loop``:
     copy of the state, which the block copies back into the state's own
     tensors at its end (``_run``). Replays add the launches each graph
     recorded to the kernels' launch counters (``wf.GRAPH_COUNTERS``);
+  * the host's phases are ``obs.trace.host_span``s, each adding its wall
+    seconds to a counter (``sim.build_s``, ``sim.block.replay_s``,
+    ``sim.flags_s``, ...) and, with the tracer on, an event on the
+    ``host`` track carrying the call's id under the root ``sim.call``.
+    Beside them: ``sim.flag_reads``; ``sim.block_gap_s``, the host's
+    time from a flag read's return to the return of the next replay's
+    launch (what the card waits on between blocks); and
+    ``sim.replay_device_s``, the card's time in each replayed graph, from
+    one pair of CUDA events around the replay, read after the flag read
+    that synchronises anyway;
   * the water-filling solve is behind the device flag ``changed`` (active
     membership moved or the cache was invalidated), which the kernel reads
     itself and answers with the cached rates, so no iteration syncs;
@@ -57,6 +67,7 @@ Exact-semantics notes (each is load-bearing for chunk-for-chunk parity):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import NamedTuple
 
@@ -69,7 +80,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.waterfill import ops as wf
 from repro_torch.kernels.waterfill.ref import BIG
 from repro_torch.obs.metrics import REGISTRY
-from repro_torch.obs.trace import get_tracer
+from repro_torch.obs.trace import get_tracer, host_span
 
 from .events import T_EPS
 from .simconfig import SimConfig
@@ -81,11 +92,14 @@ RATE_SOLVERS = ("f64", "f32")
 # iterations that took the host-side sequential cascade (a relay buffer full)
 _seq_cascades = REGISTRY.counter("sim.seq_cascades")
 _graph_captures = REGISTRY.counter("sim.graph_captures")
-_graph_capture_s = REGISTRY.counter("sim.graph_capture_s")  # + instantiate
 _graph_replays = REGISTRY.counter("sim.graph_replays")
 # predicated loop iterations the device ran, live or frozen (one launch of
 # each sim kernel apiece)
 _iterations = REGISTRY.counter("sim.iterations")
+_flag_reads = REGISTRY.counter("sim.flag_reads")
+_block_gap_s = REGISTRY.counter("sim.block_gap_s")
+_replay_device_s = REGISTRY.counter("sim.replay_device_s")
+_call_ids = itertools.count(1)  # a call's id, on each of its host spans
 
 
 class _Sc(NamedTuple):
@@ -434,41 +448,65 @@ class _Blocks:
     """Runs blocks of predicated iterations: eagerly on the CPU; on the
     card eagerly at a block length's first use in the run, then as one
     CUDA graph per length, captured at its second use and replayed from
-    then on."""
+    then on. ``call`` is the sim call's id, for its host spans."""
 
-    def __init__(self, st: _St, cn: _Cn, sc: _Sc):
-        self.st, self.cn, self.sc = st, cn, sc
+    def __init__(self, st: _St, cn: _Cn, sc: _Sc, call: int):
+        self.st, self.cn, self.sc, self.call = st, cn, sc, call
         self.graphs: dict = {}  # length -> (graph, launches it records)
+        # one pair of CUDA events around each replay, reused: the device
+        # time of the last replay, read once it has ended
+        self.timing = None
+        if st.now.device.type == "cuda":
+            self.timing = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+        self.timed = False  # the pair holds a replay not read yet
 
-    def run(self, n: int) -> None:
+    def run(self, n: int) -> bool:
+        """Run one block of ``n`` iterations; True where it was the replay
+        of a graph captured before this call."""
         st, cn, sc = self.st, self.cn, self.sc
         _iterations.inc(n)
-        if st.now.device.type != "cuda":
-            _run(st, cn, sc, n)
-            return
-        if n not in self.graphs:  # first use: eager, the warm-up
-            self.graphs[n] = None
-            _run(st, cn, sc, n)
-            return
-        if self.graphs[n] is None:
-            self.graphs[n] = self._capture(n)
+        cuda = st.now.device.type == "cuda"
+        if not cuda or n not in self.graphs:
+            if cuda:  # first use: eager, the warm-up
+                self.graphs[n] = None
+            with host_span("sim.block.eager", call=self.call):
+                _run(st, cn, sc, n)
+            return False
+        replay = self.graphs[n] is not None
+        if not replay:
+            with host_span("sim.block.capture",
+                           counter="sim.graph_capture_s", call=self.call):
+                self.graphs[n] = self._capture(n)
         graph, recorded = self.graphs[n]
-        graph.replay()
+        start, end = self.timing
+        with host_span("sim.block.replay", call=self.call):
+            start.record()
+            graph.replay()
+            end.record()
+        self.timed = True
         _graph_replays.inc()
         for (_, launches), k in zip(wf.GRAPH_COUNTERS, recorded):
             if k:
                 launches.inc(k)
+        return replay
+
+    def read_device_time(self) -> None:
+        """Add the last replay's device seconds to ``sim.replay_device_s``;
+        called after a read that waited for the replay to end."""
+        if self.timed:
+            start, end = self.timing
+            _replay_device_s.inc(start.elapsed_time(end) * 1e-3)
+            self.timed = False
 
     def _capture(self, n: int):
         """Capture the block (already run eagerly once); returns (graph,
         launches it records per counter pair)."""
         st, cn, sc = self.st, self.cn, self.sc
         before = [r.value for r, _ in wf.GRAPH_COUNTERS]
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             _run(st, cn, sc, n)
-        _graph_capture_s.inc(time.perf_counter() - t0)
         _graph_captures.inc()
         recorded = [r.value - b for (r, _), b in zip(wf.GRAPH_COUNTERS,
                                                        before)]
@@ -484,13 +522,21 @@ def _segment(st: _St, cn: _Cn, sc: _Sc, block: int,
     iteration and double, so a buffer that stays full does not leave the
     device spinning through frozen iterations."""
     n = block
+    read = None  # the last flag read's return, where a replay follows it
     while True:
-        blocks.run(n)
-        flags = torch.stack([_base_go(st, sc), _use_seq(st, sc)]).tolist()
+        if blocks.run(n) and read is not None:
+            _block_gap_s.inc(time.perf_counter() - read)
+        with host_span("sim.flags", call=blocks.call):
+            flags = torch.stack([_base_go(st, sc), _use_seq(st, sc)]).tolist()
+        read = time.perf_counter()
+        _flag_reads.inc()
+        blocks.read_device_time()
         if not flags[0]:
             return
         if flags[1]:
-            _run(st, cn, sc, 1, seq=True)
+            with host_span("sim.cascade_seq", call=blocks.call):
+                _run(st, cn, sc, 1, seq=True)
+            read = None
             _iterations.inc()
             _seq_cascades.inc()
             n = 1
@@ -835,8 +881,6 @@ def simulate_multi_torch(
     iterations between host reads of the loop flags (on the card, the
     length of the CUDA graph replayed between them); the result does not
     depend on it. Prefer ``transfer.sim.simulate``."""
-    from .events import materialize_jobs, sorted_schedule
-
     cfg = resolve_sim_config(
         config, link_capacity_scale=link_capacity_scale,
         straggler_prob=straggler_prob, straggler_speed=straggler_speed,
@@ -848,25 +892,37 @@ def simulate_multi_torch(
     if block < 1:
         raise ValueError("block must be >= 1")
     dev = resolve_device(device)
-    su = materialize_jobs(
-        jobs, seed=cfg.seed, straggler_prob=cfg.straggler_prob,
-        straggler_speed=cfg.straggler_speed, exec_top=cfg.exec_top,
-    )
-    sched = sorted_schedule(jobs, faults)
-    tr = get_tracer()
-    if tr.enabled:
-        tr.instant("sim.start", 0.0, jobs=len(jobs), scheduled=len(sched))
-    retried = np.zeros(len(jobs), dtype=np.int64)
-    vm_alive = np.ones(su.vm_eg_cap.shape[0], dtype=bool)
-    sc, cn, st = _build(su, cfg, sched, rate_solver, dev)
-    blocks = _Blocks(st, cn, sc)
+    call = next(_call_ids)
+    with host_span("sim.call", call=call):
+        return _simulate(jobs, faults, cfg, dev, rate_solver, block, call)
+
+
+def _simulate(jobs, faults, cfg, dev, rate_solver, block, call):
+    """``simulate_multi_torch``'s run, inside its ``sim.call`` span."""
+    from .events import materialize_jobs, sorted_schedule
+
+    with host_span("sim.build", call=call):
+        su = materialize_jobs(
+            jobs, seed=cfg.seed, straggler_prob=cfg.straggler_prob,
+            straggler_speed=cfg.straggler_speed, exec_top=cfg.exec_top,
+        )
+        sched = sorted_schedule(jobs, faults)
+        tr = get_tracer()
+        if tr.enabled:
+            tr.instant("sim.start", 0.0, jobs=len(jobs),
+                       scheduled=len(sched))
+        retried = np.zeros(len(jobs), dtype=np.int64)
+        vm_alive = np.ones(su.vm_eg_cap.shape[0], dtype=bool)
+        sc, cn, st = _build(su, cfg, sched, rate_solver, dev)
+        blocks = _Blocks(st, cn, sc, call)
     ptr = 0
     while True:
         if not bool(st.draining):
-            ptr = _host_apply_due(
-                st, su, sched, ptr, vm_alive, retried,
-                cfg.link_capacity_scale is not None, sc.qcap, tr,
-            )
+            with host_span("sim.apply_due", call=call):
+                ptr = _host_apply_due(
+                    st, su, sched, ptr, vm_alive, retried,
+                    cfg.link_capacity_scale is not None, sc.qcap, tr,
+                )
         _segment(st, cn, sc, block, blocks)
         n_td = int(st.td_n)
         if n_td and tr.enabled:
@@ -884,4 +940,5 @@ def simulate_multi_torch(
         )
         if not due:
             break
-    return _finalize(st, su, jobs, cfg, retried, tr)
+    with host_span("sim.finalize", call=call):
+        return _finalize(st, su, jobs, cfg, retried, tr)

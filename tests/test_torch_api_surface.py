@@ -21,8 +21,10 @@ import pytest
 # every module of the reference's transfer plane is ported
 NOT_PORTED_YET: dict[str, set] = {}
 # the reference's deprecated per-engine shims: the port reaches every
-# engine through simulate(engine=...) and does not copy them
-NOT_COPIED = {"transfer": {"simulate_multi", "simulate_multi_reference"}}
+# engine through simulate(engine=...) and does not copy them; and its
+# gauge and histogram, which nothing in the port creates
+NOT_COPIED = {"transfer": {"simulate_multi", "simulate_multi_reference"},
+              "obs": {"Gauge", "Histogram"}}
 PACKAGES = ("transfer", "calibrate", "core", "obs", "ckpt", "models",
             "sharding", "analysis")
 
@@ -70,11 +72,15 @@ def test_model_modules_define_the_reference_functions(mod):
 
 
 def test_left_out_names_are_absent():
+    import repro_torch.obs as obs
     import repro_torch.transfer as t
+    from repro_torch.obs import metrics
     from repro_torch.transfer import flowsim, flowsim_ref
 
     for name in NOT_PORTED_YET.get("transfer", set()) | NOT_COPIED["transfer"]:
         assert not hasattr(t, name), name
+    for name in NOT_COPIED["obs"]:
+        assert not hasattr(obs, name) and not hasattr(metrics, name), name
     assert not hasattr(flowsim, "simulate_multi")
     assert not hasattr(flowsim_ref, "simulate_multi_reference")
 

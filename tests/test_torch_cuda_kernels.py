@@ -15,6 +15,7 @@ quantizer's: bit for bit).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from repro_torch.kernels.quantize import ops as quant_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.waterfill import ops as wf_ops
 from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import on_track
 
 from test_torch_cases import (
     SEGSUM_CASES,
@@ -418,11 +420,49 @@ def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
     assert got.events == want.events and got.time_s == want.time_s
     for a, b in zip(got.jobs, want.jobs):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
-    assert got_tr == want_tr
+    assert on_track(got_tr) == on_track(want_tr)
     assert d["sim.graph_captures"] >= 1 and d["sim.graph_replays"] >= 1
     assert d["sim.iterations"] >= got.events
     assert d["kernels.waterfill_f64.launches"] == d["sim.iterations"]
     assert d["kernels.segsum_ordered.launches"] == d["sim.iterations"]
+
+
+@pytest.mark.gpu
+def test_each_replay_is_timed_by_one_event_pair(port_top, monkeypatch):
+    """``sim.replay_device_s`` is the card's time in the replayed graphs:
+    one pair of CUDA events recorded around each replay and read once,
+    more than nothing and no more than the run's wall time. The host's
+    gaps before replays are measured too."""
+    _need_card()
+    from repro_torch.transfer.flowsim_torch import simulate_multi_torch
+
+    calls = {"record": 0, "elapsed_time": 0}
+
+    class Counted(torch.cuda.Event):
+        def record(self, stream=None):
+            calls["record"] += 1
+            return super().record(stream)
+
+        def elapsed_time(self, end_event):
+            calls["elapsed_time"] += 1
+            return super().elapsed_time(end_event)
+
+    monkeypatch.setattr(torch.cuda, "Event", Counted)
+    jobs, faults, kw = sim_scenario("plain", port_top)
+    names = ("sim.replay_device_s", "sim.graph_replays", "sim.block_gap_s",
+             "sim.flag_reads")
+    before = {n: REGISTRY.counter(n).value for n in names}
+    t0 = time.perf_counter()
+    simulate_multi_torch(jobs, faults, seed=0, block=4, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    assert d["sim.graph_replays"] >= 2
+    assert calls["record"] == 2 * d["sim.graph_replays"]
+    assert calls["elapsed_time"] == d["sim.graph_replays"]
+    assert 0 < d["sim.replay_device_s"] <= wall
+    assert 0 < d["sim.block_gap_s"] < wall
+    assert d["sim.flag_reads"] > d["sim.graph_replays"]
 
 
 @pytest.mark.gpu
@@ -443,7 +483,7 @@ def test_card_sim_at_twice_the_shared_memory_limit_equals_cpu(port_top):
     assert got.events == want.events and got.time_s == want.time_s
     for a, b in zip(got.jobs, want.jobs):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
-    assert got_tr == want_tr
+    assert on_track(got_tr) == on_track(want_tr)
     assert all(j.status == "done" for j in got.jobs)
     assert d["kernels.waterfill_f64.launches"] == 0
     assert d["kernels.waterfill_f64_cluster.launches"] == d["sim.iterations"]
