@@ -9,8 +9,11 @@ plans the Fig. 6 route on the card (batched torch IPM) and moves the
 plan's chunks through the device-resident sim, first at 10,240 chunks of
 64 MB with scripted faults (held field for field against the same run on
 the CPU), then at 100,000 chunks; on the card the sim runs each block of
-iterations as a replayed CUDA graph, and the sim phases report the graphs
-captured, their capture seconds and their replays; ``[sim_1e5]``
+iterations as a replayed CUDA graph of three kernels an iteration (the
+sim-step kernels around the water-filling solve, each launched once an
+iteration, and the ordered segment sum not at all), and the sim phases
+report the graphs captured, their capture seconds and their replays;
+``[sim_1e5]``
 brackets every block with CUDA events for the card's idle share. The
 transfer service follows, with the launch counts set to 0 again: the
 multi-job benchmark's service block at 10,240 chunks a job
@@ -487,11 +490,13 @@ def phase_build():
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.simstep import build as ss_build
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.waterfill import build
 
     libs = [flash_ops.WGMMA_LIBRARY, ssd_ops.WGMMA_LIBRARY, build.LIBRARY,
-            flash_ops.LIBRARY, ssd_ops.LIBRARY, quant_ops.LIBRARY]
+            flash_ops.LIBRARY, ssd_ops.LIBRARY, quant_ops.LIBRARY,
+            ss_build.LIBRARY]
     t0 = time.perf_counter()
     nvcc.build_all(libs)
     seconds = time.perf_counter() - t0
@@ -837,6 +842,19 @@ def graph_delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in graph_counts().items()}
 
 
+def step_launches(before: dict | None = None) -> dict:
+    """Launches of the sim-step kernels (``sim_pre_f64``,
+    ``sim_post_f64``; one each an iteration on the card), since
+    ``before`` where given."""
+    from repro_torch.kernels.simstep import ops
+    from repro_torch.obs.metrics import REGISTRY
+
+    now = {k: int(REGISTRY.counter(f"kernels.{k}.launches").value)
+           for k in ops.KERNELS}
+    return now if before is None else {k: n - before[k]
+                                       for k, n in now.items()}
+
+
 def same_run(card, cpu, what: str) -> None:
     check(card.events == cpu.events and card.time_s == cpu.time_s,
           f"{what}: card and CPU runs differ in events or time")
@@ -942,10 +960,12 @@ def phase_sim_fleet(top):
     cluster = REGISTRY.counter("kernels.waterfill_f64_cluster.launches")
     shared = REGISTRY.counter("kernels.waterfill_f64.launches")
     n0, s0, g0 = cluster.value, shared.value, graph_counts()
+    k0 = step_launches()
     with timed_blocks() as spans:
         card, wall, card_tr = traced_sim(jobs, [])
     graphs = graph_delta(g0)
     launches, shared_launches = cluster.value - n0, shared.value - s0
+    step = step_launches(k0)
     busy_ms = sum(a.elapsed_time(b) for a, b, *_ in spans)
     cpu, cpu_wall, cpu_tr = traced_sim(jobs, [], device="cpu")
     same_run(card, cpu, "fleet")
@@ -955,6 +975,8 @@ def phase_sim_fleet(top):
     check(launches == iterations and shared_launches == 0,
           f"fleet: {launches} cluster and {shared_launches} one-block "
           f"solves over {iterations} iterations")
+    check(all(n == iterations for n in step.values()),
+          f"fleet: sim-step launches {step} over {iterations} iterations")
     plan = ops.launch_plan(nc, nv, ne)
     say("sim_fleet", jobs=len(jobs), lanes=nc, vms=nv, edges=ne,
         smem_bytes_one_block=ops.smem_bytes(nc, nv, ne, 8),
@@ -964,6 +986,7 @@ def phase_sim_fleet(top):
         events_per_s=round(card.events / wall, 1),
         cpu_wall_s=round(cpu_wall, 4), asdict_equal_cpu=True,
         trace_equal_cpu=True, waterfill_cluster_launches=int(launches),
+        sim_step_launches=step,
         blocks=len(spans), blocks_device_s=busy_ms / 1e3,
         device_us_per_iteration=busy_ms * 1e3 / iterations,
         replay_us_per_iteration=replay_us(spans),
@@ -1030,8 +1053,7 @@ def phase_sim_1e5(jobs):
     from repro_torch.transfer import simulate
 
     wf = REGISTRY.counter("kernels.waterfill_f64.launches")
-    ss = REGISTRY.counter("kernels.segsum_ordered.launches")
-    n0, s0, g0 = wf.value, ss.value, graph_counts()
+    n0, k0, g0 = wf.value, step_launches(), graph_counts()
     with timed_blocks() as spans:
         t0 = time.perf_counter()
         res = simulate(jobs)
@@ -1046,11 +1068,14 @@ def phase_sim_1e5(jobs):
     launches = int(wf.value - n0)
     check(launches >= res.events and launches == graphs["iterations"],
           "water-filling launches are not one per iteration run")
+    step = step_launches(k0)
+    check(all(n == graphs["iterations"] for n in step.values()),
+          f"sim-step launches {step} are not one per iteration run")
     check(graphs["graph_replays"] > 0, "the sim replayed no CUDA graph")
     say("sim_1e5", chunks=job.n_chunks, events=res.events,
         sim_time_s=res.time_s, wall_s=round(wall, 3),
         events_per_s=round(res.events / wall, 1),
-        waterfill_launches=launches, segsum_launches=int(ss.value - s0),
+        waterfill_launches=launches, sim_step_launches=step,
         graphs=graphs, blocks=len(spans), blocks_device_s=busy_ms / 1e3,
         device_us_per_iteration=busy_ms * 1e3 / graphs["iterations"],
         replay_us_per_iteration=replay_us(spans), loop_s=loop_ms / 1e3,
@@ -1232,8 +1257,12 @@ def phase_service(name, suite, top, counters, extra=None,
     events = sum(r.sim_events for r in reps)
     replans = [x for r in reps for x in r.replans]
     wf = sum(n for k, n in launches.items() if k.startswith("waterfill"))
-    check(wf > 0 and launches["segsum_ordered_f64"] > 0,
-          f"{name}: the sim's kernels were not launched: {launches}")
+    iterations = graphs["iterations"]
+    check(wf > 0 and launches["sim_pre_f64"] == launches["sim_post_f64"]
+          == iterations > 0
+          and launches["segsum_ordered_f64"] == 0,
+          f"{name}: the sim's kernels were not launched once an "
+          f"iteration: {launches}, {iterations} iterations")
     say(name, runs=len(reps), cpu_runs=len(cpu), jobs=len(jobs),
         chunks=sum(j.n_chunks for j in jobs), wall_s=wall,
         cpu_wall_s=cpu_wall, segments=sum(r.segments for r in reps),
@@ -3935,6 +3964,8 @@ def main(argv=None) -> int:
         "waterfill_f32": "kernels.waterfill_f32.launches",
         "waterfill_f64_cluster": "kernels.waterfill_f64_cluster.launches",
         "segsum_ordered_f64": "kernels.segsum_ordered.launches",
+        "sim_pre_f64": "kernels.sim_pre_f64.launches",
+        "sim_post_f64": "kernels.sim_post_f64.launches",
     }
     for c in counters.values():
         REGISTRY.counter(c).reset()
@@ -3946,7 +3977,10 @@ def main(argv=None) -> int:
     phase_sim_fleet(top)
     launches = {k: int(REGISTRY.counter(c).value) for k, c in counters.items()}
     for k, n in launches.items():
-        check(n > 0, f"{k} was not launched on the main path")
+        if k == "segsum_ordered_f64":  # folded into sim_post_f64
+            check(n == 0, "the sim launched the ordered segment sum")
+        else:
+            check(n > 0, f"{k} was not launched on the main path")
 
     # ---- the service path: every launch count starts at 0 here
     for c in counters.values():
@@ -3961,7 +3995,8 @@ def main(argv=None) -> int:
     cal_reps = calibrated_path(top, counters)
     cal_launches = {k: int(REGISTRY.counter(c).value)
                     for k, c in counters.items()}
-    check(cal_launches["segsum_ordered_f64"] > 0 and sum(
+    check(cal_launches["sim_pre_f64"] == cal_launches["sim_post_f64"] > 0
+          and cal_launches["segsum_ordered_f64"] == 0 and sum(
         n for k, n in cal_launches.items() if k.startswith("waterfill")) > 0,
         f"the sim's kernels were not launched on the calibrated path: "
         f"{cal_launches}")

@@ -28,10 +28,19 @@ How the loop runs without ``lax.while_loop``:
     nothing falls back to eager blocks.
     On the CPU the same blocks run eagerly. The state's tensors keep
     their storage for the whole run (the host writes them with ``copy_``
-    / ``fill_`` / ``zero_``); the iterations stay functional on a working
-    copy of the state, which the block copies back into the state's own
-    tensors at its end (``_run``). Replays add the launches each graph
-    recorded to the kernels' launch counters (``wf.GRAPH_COUNTERS``);
+    / ``fill_`` / ``zero_``). Replays add the launches each graph
+    recorded to the kernels' launch counters (``wf.GRAPH_COUNTERS``,
+    ``ss.GRAPH_COUNTERS``);
+  * on the card an iteration is three launches that update the state's
+    tensors in place (``_iteration_card``): ``sim_pre_f64`` (the loop
+    flag, the head of ``_iteration``, the batched refill and the solve's
+    membership flags), the water-filling solve, and ``sim_post_f64`` (the
+    rest of ``_step``), so a graph records three kernel nodes an
+    iteration. The torch ops of ``_iteration`` / ``_cascade_batch`` /
+    ``_step`` are the CPU's plain version, which the kernels are held
+    against; they run on a working copy of the state that ``_run``
+    copies back into the state's own tensors at the block's end. There
+    is no fallback to them on the card;
   * the host's phases are ``obs.trace.host_span``s, each adding its wall
     seconds to a counter (``sim.build_s``, ``sim.block.replay_s``,
     ``sim.flags_s``, ...) and, with the tracer on, an event on the
@@ -56,10 +65,10 @@ Exact-semantics notes (each is load-bearing for chunk-for-chunk parity):
   * eager torch rounds ``rates * dt`` and ``remaining - moved`` as separate
     operations, so no multiply-add is ever fused;
   * the per-(job, edge) Gbit sums add their lanes in ascending connection
-    order (``segment_sum_ordered``: the CUDA kernel on the card,
-    ``index_add_`` on the CPU), as the reference's ``segment_sum`` and the
-    numpy engine's ``bincount`` do. Integer segment sums may add in any
-    order;
+    order (``segment_sum_ordered``'s ``index_add_`` on the CPU, a fold in
+    ``sim_post_f64`` on the card), as the reference's ``segment_sum`` and
+    the numpy engine's ``bincount`` do. Integer segment sums may add in
+    any order;
   * scatters that several lanes may hit write the same value to a dump
     row (stage ``ns`` / job ``J``), so which write lands does not matter.
 """
@@ -77,6 +86,7 @@ import torch
 from repro_torch.core.plan import MulticastPlan
 from repro_torch.core.topology import GBIT_PER_GB
 from repro_torch.device import resolve_device
+from repro_torch.kernels.simstep import ops as ss
 from repro_torch.kernels.waterfill import ops as wf
 from repro_torch.kernels.waterfill.ref import BIG
 from repro_torch.obs.metrics import REGISTRY
@@ -100,6 +110,9 @@ _flag_reads = REGISTRY.counter("sim.flag_reads")
 _block_gap_s = REGISTRY.counter("sim.block_gap_s")
 _replay_device_s = REGISTRY.counter("sim.replay_device_s")
 _call_ids = itertools.count(1)  # a call's id, on each of its host spans
+# (recorded under capture, launched) counter pairs of every kernel a block
+# of iterations launches on the card
+_GRAPH_COUNTERS = wf.GRAPH_COUNTERS + ss.GRAPH_COUNTERS
 
 
 class _Sc(NamedTuple):
@@ -153,6 +166,9 @@ class _Cn:
     rows: torch.Tensor  # [NS + 1, 1] stage ids (cascade window gather)
     win: torch.Tensor  # [1, MAXCS] window offsets
     host: dict  # numpy copies for the host-side sequential cascade
+    # on the card, the sim-step kernels bound to this sim's state, their
+    # scratch included (set by ``_build``); None on the CPU
+    step: ss.Bound | None = None
 
 
 @dataclasses.dataclass
@@ -249,10 +265,11 @@ def _cascade_batch(st: _St, cn: _Cn, sc: _Sc, run) -> None:
     st.relay_occ = st.relay_occ - torch.where(cn.stage_hop > 0, cnt, 0)
 
 
-def _cascade_seq(st: _St, cn: _Cn, sc: _Sc) -> None:
+def _cascade_seq(st: _St, cn: _Cn, sc: _Sc) -> np.ndarray:
     """Exact sequential replication of the reference cascade passes, on
     the host. A cascade takes at most one chunk per conn, so a window of
-    ``maxcs`` queue entries past each head covers every take."""
+    ``maxcs`` queue entries past each head covers every take. Returns the
+    lanes' chunks after it (host copy)."""
     h = cn.host
     win = st.ready_buf[cn.rows, (st.q_head[:, None] + cn.win) % sc.qcap]
     chunk_arr, remaining, q_head, relay_occ, q_tail, alive, arrived, win = (
@@ -290,6 +307,7 @@ def _cascade_seq(st: _St, cn: _Cn, sc: _Sc) -> None:
     st.remaining.copy_(torch.from_numpy(remaining))
     st.q_head.copy_(torch.from_numpy(q_head))
     st.relay_occ.copy_(torch.from_numpy(relay_occ))
+    return chunk_arr
 
 
 def _step(st: _St, cn: _Cn, sc: _Sc, go) -> None:
@@ -425,13 +443,41 @@ def _iteration(st: _St, cn: _Cn, sc: _Sc, go, *, seq: bool) -> None:
     _step(st, cn, sc, go)
 
 
+def _iteration_card(st: _St, cn: _Cn, sc: _Sc, *, seq: bool) -> None:
+    """One iteration on the card, three launches that update the state in
+    place: ``sim_pre_f64`` (``go``, the head of ``_iteration``, the batched
+    refill, the solve's membership flags), the water-filling solve, and
+    ``sim_post_f64`` (the rest of ``_step``). ``seq``: the refill is the
+    host's sequential cascade, run between the first launch and the solve
+    where ``run`` holds, after which the host sets the membership flags."""
+    k = cn.step
+    ss.sim_pre_f64(k, seq=seq)
+    if seq and bool(k.scratch.run):
+        chunk_arr = _cascade_seq(st, cn, sc)
+        # ``run`` held, so ``work`` is whether any lane is active
+        active = chunk_arr >= 0
+        changed = bool(active.any()) and (
+            not bool(st.rates_valid)
+            or bool((active != st.last_active.cpu().numpy()).any()))
+        k.scratch.active.copy_(torch.from_numpy(active))
+        k.scratch.changed.fill_(changed)
+    rates = _compute_rates(st, cn, sc, k.scratch.active, k.scratch.changed)
+    ss.sim_post_f64(k, rates)
+
+
 _FIELDS = tuple(f.name for f in dataclasses.fields(_St))
 
 
 def _run(st: _St, cn: _Cn, sc: _Sc, n: int, *, seq: bool = False) -> None:
     """``n`` loop iterations (``seq``: one iteration with the host-side
-    cascade) on a working copy of the state, written back into the
-    state's own tensors, so their storage never changes."""
+    cascade). On the card each is ``_iteration_card``'s three launches; on
+    the CPU the torch ops run on a working copy of the state, written back
+    into the state's own tensors. Either way their storage never
+    changes."""
+    if cn.step is not None:
+        for _ in range(n):
+            _iteration_card(st, cn, sc, seq=seq)
+        return
     w = dataclasses.replace(st)
     for _ in range(n):
         go = _base_go(w, sc)
@@ -486,7 +532,7 @@ class _Blocks:
             end.record()
         self.timed = True
         _graph_replays.inc()
-        for (_, launches), k in zip(wf.GRAPH_COUNTERS, recorded):
+        for (_, launches), k in zip(_GRAPH_COUNTERS, recorded):
             if k:
                 launches.inc(k)
         return replay
@@ -503,13 +549,12 @@ class _Blocks:
         """Capture the block (already run eagerly once); returns (graph,
         launches it records per counter pair)."""
         st, cn, sc = self.st, self.cn, self.sc
-        before = [r.value for r, _ in wf.GRAPH_COUNTERS]
+        before = [r.value for r, _ in _GRAPH_COUNTERS]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             _run(st, cn, sc, n)
         _graph_captures.inc()
-        recorded = [r.value - b for (r, _), b in zip(wf.GRAPH_COUNTERS,
-                                                       before)]
+        recorded = [r.value - b for (r, _), b in zip(_GRAPH_COUNTERS, before)]
         return graph, recorded
 
 
@@ -675,7 +720,40 @@ def _build(su, cfg, sched, solver: str, dev):
         td_job=full((j + 1,), 0, torch.int64),
         td_n=full((), 0, torch.int64),
     )
+    if torch.device(dev).type == "cuda":
+        _card_libraries()
+        cn.step = ss.bind(*_step_inputs(st, cn, sc), ss.scratch(ncp, dev))
     return sc, cn, st
+
+
+def _card_libraries() -> None:
+    """Build and load the card's sim libraries (water-filling and sim
+    step) at the first card sim of a process, one nvcc each, together."""
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.simstep import build as ss_build
+    from repro_torch.kernels.waterfill import build as wf_build
+
+    nvcc.build_all([wf_build.LIBRARY, ss_build.LIBRARY])
+
+
+def _step_inputs(st: _St, cn: _Cn, sc: _Sc) -> tuple[dict, dict]:
+    """The tensors (by ``ss.TENSORS``' names, but the scratch) and the
+    sizes and constants the sim-step kernels take."""
+    tensors = {f: getattr(st, f) for f in _FIELDS}
+    tensors.update(
+        (f, getattr(cn, f)) for f in (
+            "conn_job", "conn_sid", "conn_valid", "chunk_size",
+            "conn_first", "stage_hop", "stage_deliver", "children",
+            "slot_job", "slot_need"))
+    tensors["je_off"], tensors["je_idx"] = cn.je_lists
+    knobs = dict(
+        relay_cap=sc.relay_cap, max_events=sc.max_events,
+        horizon=sc.horizon, hz_eps=sc.horizon - T_EPS, t_eps=T_EPS,
+        eps=_EPS, ncp=sc.ncp, ns=sc.ns, nj=sc.j, nslot=sc.nslot,
+        nseg=sc.j * sc.ne, qcap=sc.qcap, maxch=sc.maxch,
+        seq_possible=int(sc.seq_possible), drain=int(sc.drain),
+    )
+    return tensors, knobs
 
 
 def _host_apply_due(st: _St, su, sched, ptr, vm_alive, retried, use_edge,

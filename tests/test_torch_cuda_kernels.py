@@ -394,10 +394,14 @@ def _sim(jobs, faults, kw, device):
 
     tr = trace.enable(capacity=1 << 16)
     try:
-        res = simulate_multi_torch(jobs, faults, device=device, seed=0, **kw)
+        res = simulate_multi_torch(jobs, faults, device=device,
+                                   **{"seed": 0, **kw})
         return res, tr.events()
     finally:
         trace.disable()
+
+
+_STEP = ("kernels.sim_pre_f64.launches", "kernels.sim_post_f64.launches")
 
 
 @pytest.mark.gpu
@@ -405,13 +409,15 @@ def _sim(jobs, faults, kw, device):
 def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
     """The card's sim (CUDA graphs of the predicated blocks, here of 4
     iterations so that every scenario replays one) equals the CPU run
-    (blocks of 64) field for field, with the same Skytrace stream, and each
-    kernel's launch counter grows by the iterations the device ran."""
+    (blocks of 64) field for field, with the same Skytrace stream; the
+    water-filling kernel and both sim-step kernels launch once an
+    iteration the device ran, and the ordered segment sum, folded into
+    ``sim_post_f64``, not at all."""
     _need_card()
     jobs, faults, kw = sim_scenario(name, port_top)
     names = ("sim.iterations", "sim.graph_captures", "sim.graph_replays",
              "kernels.waterfill_f64.launches",
-             "kernels.segsum_ordered.launches")
+             "kernels.segsum_ordered.launches", *_STEP)
     before = {n: REGISTRY.counter(n).value for n in names}
     got, got_tr = _sim(jobs, faults, dict(kw, block=4), None)
     torch.cuda.synchronize()
@@ -424,7 +430,100 @@ def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
     assert d["sim.graph_captures"] >= 1 and d["sim.graph_replays"] >= 1
     assert d["sim.iterations"] >= got.events
     assert d["kernels.waterfill_f64.launches"] == d["sim.iterations"]
-    assert d["kernels.segsum_ordered.launches"] == d["sim.iterations"]
+    for n in _STEP:
+        assert d[n] == d["sim.iterations"], n
+    assert d["kernels.segsum_ordered.launches"] == 0
+
+
+def _direct_2vm(top, chunks: int):
+    """One direct job of 2 VMs x 64 connections and ``chunks`` 64 MB
+    chunks, ``aws:us-west-2`` to ``aws:eu-central-1``: the benchmark's
+    bulk transfer, shortened."""
+    from repro_torch.core import direct_plan
+    from repro_torch.transfer import TransferJob
+
+    return [TransferJob(direct_plan(top, "aws:us-west-2", "aws:eu-central-1",
+                                    chunks * 64.0 / 1024, num_vms=2),
+                        "bulk", chunk_mb=64.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,tied", [(0, False), (3, True)])
+def test_card_sim_of_a_bulk_transfer_equals_cpu(seed, tied, port_top):
+    """A 2,000-chunk direct transfer of 128 lanes on the sim-step kernels
+    equals the CPU's torch ops field for field, with the same Skytrace
+    stream: seed 0 has one event a chunk, seed 3 ties completions (fewer
+    events than chunks). Every iteration runs both kernels."""
+    _need_card()
+    jobs = _direct_2vm(port_top, 2000)
+    names = ("sim.iterations", "kernels.waterfill_f64.launches", *_STEP)
+    before = {n: REGISTRY.counter(n).value for n in names}
+    got, got_tr = _sim(jobs, [], {"seed": seed}, None)
+    torch.cuda.synchronize()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    want, want_tr = _sim(jobs, [], {"seed": seed}, "cpu")
+    assert got.events == want.events and got.time_s == want.time_s
+    for a, b in zip(got.jobs, want.jobs):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert on_track(got_tr) == on_track(want_tr)
+    assert got.jobs[0].chunks_delivered == 2000
+    assert (got.events < 2000) == tied
+    for n in names[1:]:
+        assert d[n] == d["sim.iterations"], n
+
+
+@pytest.mark.gpu
+def test_f32_solver_sim_on_the_step_kernels(port_top):
+    """The f32 solver keeps its casts around the solve; between them the
+    sim-step kernels run every iteration, and the card's run equals the
+    CPU's f32 run in every chunk, status and event."""
+    _need_card()
+    jobs, faults, kw = sim_scenario("plain", port_top)
+    kw = dict(kw, rate_solver="f32")
+    names = ("sim.iterations", "kernels.waterfill_f32.launches", *_STEP)
+    before = {n: REGISTRY.counter(n).value for n in names}
+    got, got_tr = _sim(jobs, faults, kw, None)
+    torch.cuda.synchronize()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    want, want_tr = _sim(jobs, faults, kw, "cpu")
+    assert got.events == want.events
+    assert [(j.chunks_delivered, j.status) for j in got.jobs] == [
+        (j.chunks_delivered, j.status) for j in want.jobs]
+    assert got.time_s == pytest.approx(want.time_s, rel=1e-5)
+    for n in names[1:]:
+        assert d[n] == d["sim.iterations"], n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [1, 8, 64])
+def test_a_captured_block_records_three_kernels_an_iteration(block,
+                                                             port_top,
+                                                             monkeypatch):
+    """A CUDA graph of ``block`` iterations records exactly ``block``
+    launches of each sim-step kernel and of the water-filling kernel, and
+    none of the ordered segment sum (``.recorded`` counters, read around
+    each capture)."""
+    _need_card()
+    from repro_torch.transfer import flowsim_torch
+
+    counters = {n: REGISTRY.counter(n.replace(".launches", ".recorded"))
+                for n in (*_STEP, "kernels.waterfill_f64.launches",
+                          "kernels.segsum_ordered.launches")}
+    seen = []
+    capture = flowsim_torch._Blocks._capture
+
+    def spy(self, n):
+        before = {k: c.value for k, c in counters.items()}
+        out = capture(self, n)
+        seen.append((n, {k: c.value - before[k] for k, c in counters.items()}))
+        return out
+
+    monkeypatch.setattr(flowsim_torch._Blocks, "_capture", spy)
+    _sim(_direct_2vm(port_top, 300), [], {"block": block}, None)
+    assert seen and any(n == block for n, _ in seen)
+    for n, rec in seen:
+        assert rec == {**{k: n for k in rec},
+                       "kernels.segsum_ordered.launches": 0}, (n, rec)
 
 
 @pytest.mark.gpu
