@@ -8,8 +8,9 @@ window's ``--seconds`` have not run out; the window ends when the last
 sim returns. With ``--trace 1`` a slice of one more sim (cut at the
 traffic's ``slice_horizon_s``, or whole where that is null) then runs
 under ``torch.profiler``. Once the program is done and the device's peak
-memory read, the frozen reference runs every sim again on the CPU and
-``judge`` holds the two.
+memory read, the frozen reference runs each distinct sim seed of the
+window once on the CPU, and ``judge`` holds every sim against its seed's
+result; the slice is run again on its own, at its horizon.
 
 Every metric is read by its file ``metrics/<name>.py`` from
 ``Readings``: the end-to-end ones with ``--trace 0``, the per-layer ones
@@ -40,7 +41,8 @@ class Readings:
     window_s: float
     window_sims: int
     window_events: int  # the results' events, summed
-    window_chunks: int  # chunks delivered, summed over jobs and sims
+    window_chunks: int  # chunks delivered, summed over jobs and sims (a
+    # multicast job's summed over its destinations)
     window_counters: dict  # the program's counters over the window
     slice: devtrace.Slice | None = None
     slice_counters: dict = dataclasses.field(default_factory=dict)
@@ -61,6 +63,15 @@ def card_line() -> str:
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi failed: {e}"
     return out.stdout.strip().splitlines()[0]
+
+
+def delivered(job) -> int:
+    """A job result's chunks delivered: a multicast job's summed over its
+    destinations (its ``chunks_delivered`` counts only the chunks that
+    reached every one)."""
+    if job.per_dst_delivered is None:
+        return job.chunks_delivered
+    return sum(job.per_dst_delivered.values())
 
 
 def _reference_sim(inputs, seed: int, **kw):
@@ -134,7 +145,7 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
     r = Readings(
         setup_s=start - t0, window_s=end - start, window_sims=len(done),
         window_events=sum(res.events for _, res in done),
-        window_chunks=sum(j.chunks_delivered for _, res in done
+        window_chunks=sum(delivered(j) for _, res in done
                           for j in res.jobs),
         window_counters=since(before))
 
@@ -158,8 +169,9 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
 
     # ------------------------------------------- the reference, afterwards
     t = time.perf_counter()
-    readings = [judge.compare(res, _reference_sim(inputs, s))
-                for s, res in done]
+    refs = {s: _reference_sim(inputs, s)
+            for s in dict.fromkeys(s for s, _ in done)}
+    readings = [judge.compare(res, refs[s]) for s, res in done]
     ref_s = time.perf_counter() - t
     if sliced is not None:
         from skybench.reference.transfer import flowsim
@@ -198,7 +210,8 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
     marks = ", ".join(marks)
     print(f"skybench: {cell.name} on {card}: set-up {r.setup_s:.3f} s "
           f"({marks}); {len(done)} sims in {r.window_s:.3f} s; "
-          f"the reference {ref_s:.3f} s for them", file=err)
+          f"the reference {ref_s:.3f} s for their {len(refs)} sim seeds",
+          file=err)
     print("skybench: sim seconds " + " ".join(
         f"{b - a:.4f}" for a, b in zip([start, *walls], walls)), file=err)
     for k, lim in judge.LIMITS.items():
