@@ -16,7 +16,8 @@
 //                 per-(job, edge) sums in ascending lane order (the work
 //                 of segsum_ordered_f64, folded in), hop completions,
 //                 deliveries, job completions and the job-done buffer, the
-//                 per-child enqueue and `stop`.
+//                 per-child enqueue and `stop`; and `changed`, the flag
+//                 the solve answered, added to the sim's count `solves`.
 // Both update the state's own tensors in place, so a CUDA graph of a
 // block of iterations records three kernel nodes an iteration.
 //
@@ -95,6 +96,7 @@ struct SimArgs {
   double* td_time;
   long long* td_job;
   long long* td_n;
+  long long* solves;
   // constants (flowsim_torch._Cn)
   const long long* conn_job;
   const long long* conn_sid;
@@ -375,6 +377,7 @@ sim_post_kernel(const __grid_constant__ SimArgs a,
   const double t_sched = *a.t_sched;
   const bool rates_valid = *a.rates_valid != 0;
   const long long td_n = *a.td_n;
+  const bool changed = *a.changed != 0;
 
   // ---- amax(rates), amin(where(active, remaining / clamp(rates, EPS),
   // inf)), any(active); each lane's chunk kept for the next pass
@@ -549,6 +552,10 @@ sim_post_kernel(const __grid_constant__ SimArgs a,
     *a.events = events + (work ? 1 : 0);
     *a.rates_valid = rates_valid || work;
     *a.td_n = td_n + carry;
+    // nothing waits on the count (the host reads it when the sim ends),
+    // so no load of it on the kernel's tail
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.solves),
+              changed ? 1ull : 0ull);
   }
 }
 

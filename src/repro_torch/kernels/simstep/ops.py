@@ -58,7 +58,7 @@ TENSORS = (
     ("jeo", _F64, ("nseg",)), ("jeb", _F64, ("nseg",)),
     ("rates", _F64, ("ncp",)), ("last_active", _B, ("ncp",)),
     ("rates_valid", _B, ()), ("td_time", _F64, ("nj1",)),
-    ("td_job", _I64, ("nj1",)), ("td_n", _I64, ()),
+    ("td_job", _I64, ("nj1",)), ("td_n", _I64, ()), ("solves", _I64, ()),
     # the scenario's constants
     ("conn_job", _I64, ("ncp",)), ("conn_sid", _I64, ("ncp",)),
     ("conn_valid", _B, ("ncp",)), ("chunk_size", _F64, ("ncp",)),
@@ -220,7 +220,8 @@ def sim_pre_f64(b: Bound, *, seq: bool = False) -> None:
 
 def sim_post_f64(b: Bound, rates: torch.Tensor) -> None:
     """The rest of the iteration after the solve, whose output is
-    ``rates`` (f64, one a lane, on the state's device)."""
+    ``rates`` (f64, one a lane, on the state's device), and the solve's
+    flag ``changed`` added to the state's ``solves``."""
     _check(rates, "rates", _F64, (b.ncp,), b.tensors["now"].device)
     from .build import load
 

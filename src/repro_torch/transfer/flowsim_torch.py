@@ -53,7 +53,15 @@ How the loop runs without ``lax.while_loop``:
     that synchronises anyway;
   * the water-filling solve is behind the device flag ``changed`` (active
     membership moved or the cache was invalidated), which the kernel reads
-    itself and answers with the cached rates, so no iteration syncs;
+    itself and answers with the cached rates, so no iteration syncs. The
+    state's ``solves`` adds up ``changed`` as the solve read it
+    (``sim_post_f64`` on the card, after the host's sequential cascade
+    too; the torch ops on the CPU); ``_finalize`` adds it to the counter
+    ``sim.solves`` with its other reads, so ``sim.solves`` over
+    ``sim.iterations`` is the share of iterations that paid for a real
+    solve. They are the solves the numpy engine makes on the same inputs
+    (it solves when its active set moves or an event invalidated its
+    rates);
   * the exact sequential cascade (some relay buffer at capacity, rare and
     inherently serial) also freezes ``go``; the host then runs that one
     iteration with the cascade in numpy and returns to the device blocks.
@@ -106,6 +114,9 @@ _graph_replays = REGISTRY.counter("sim.graph_replays")
 # predicated loop iterations the device ran, live or frozen (one launch of
 # each sim kernel apiece)
 _iterations = REGISTRY.counter("sim.iterations")
+# water-filling solves the sim's iterations made (the rest answered from the
+# cached rates), read from the state's ``solves`` when a sim ends
+_solves = REGISTRY.counter("sim.solves")
 _flag_reads = REGISTRY.counter("sim.flag_reads")
 _block_gap_s = REGISTRY.counter("sim.block_gap_s")
 _replay_device_s = REGISTRY.counter("sim.replay_device_s")
@@ -205,6 +216,7 @@ class _St:
     td_time: torch.Tensor  # [J + 1] buffered sim.job_done instants
     td_job: torch.Tensor
     td_n: torch.Tensor
+    solves: torch.Tensor  # iterations whose ``changed`` held: real solves
 
 
 def _segsum_int(vals, idx, n: int) -> torch.Tensor:
@@ -323,6 +335,7 @@ def _step(st: _St, cn: _Cn, sc: _Sc, go) -> None:
 
     changed = work & (~st.rates_valid | (active != st.last_active).any())
     rates = _compute_rates(st, cn, sc, active, changed)
+    solves = st.solves + changed.to(i64)
     last_active = torch.where(work, active, st.last_active)
     rates_valid = st.rates_valid | work
     t_next = torch.where(st.draining, _INF, st.t_sched)
@@ -414,6 +427,7 @@ def _step(st: _St, cn: _Cn, sc: _Sc, go) -> None:
         torch.where(jump, ~jok, stalled | st.stop),
     )
     st.now, st.draining, st.stop, st.events = now, draining, stop, events
+    st.solves = solves
     st.rates, st.last_active, st.rates_valid = rates, last_active, rates_valid
     st.chunk_arr = torch.where(completed, -1, st.chunk_arr)
     st.remaining = torch.where(completed, 0.0, remaining)
@@ -719,6 +733,7 @@ def _build(su, cfg, sched, solver: str, dev):
         td_time=full((j + 1,), 0.0, f64),
         td_job=full((j + 1,), 0, torch.int64),
         td_n=full((), 0, torch.int64),
+        solves=full((), 0, torch.int64),
     )
     if torch.device(dev).type == "cuda":
         _card_libraries()
@@ -868,6 +883,7 @@ def _finalize(st: _St, su, jobs, cfg, retried, tr):
     job_edge_gbit = host(st.jeg)
     job_edge_obs_gbit = host(st.jeo)
     job_edge_busy = host(st.jeb)
+    _solves.inc(int(st.solves))
     horizon_s = cfg.horizon_s
 
     horizon_cut = horizon_s is not None and now >= horizon_s - T_EPS

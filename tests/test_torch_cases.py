@@ -204,6 +204,66 @@ def sim_scenario(name, top):
     raise KeyError(name)
 
 
+# Skyplane's OPT-66B broadcast test: the source and its six destinations
+BCAST_SRC = "gcp:us-east1"
+BCAST_DSTS = ("gcp:australia-southeast1", "gcp:southamerica-east1",
+              "gcp:europe-west4", "gcp:europe-west6", "gcp:asia-east1",
+              "gcp:europe-west2")
+# the sim's count of solves, on the benchmark's two deployments at a CPU's
+# size: case -> (plan, relay buffer in chunks, with scripted faults)
+SOLVE_CASES = {
+    "bcast": ("bcast", 64, False),
+    "direct": ("direct", 64, False),
+    "bcast_relay_full": ("bcast", 1, False),
+    "bcast_events": ("bcast", 64, True),
+}
+SOLVE_CHUNKS, SOLVE_CHUNK_MB, SOLVE_SEED = 200, 64.0, 1_826_701_614
+
+
+def solve_plans(core):
+    """(topology, broadcast plan, direct plan), 64 connections a VM, built
+    with ``core`` (the port's or the reference's package): the broadcast
+    planned cost_min at 10 Gbit/s to each destination with no relay region
+    beyond the destinations (12 VMs in the 7 regions, 36 edges, 637
+    connections, planned in seconds), the direct plan 2 VMs a region from
+    ``aws:us-west-2`` to ``aws:eu-central-1``; each scoped to 200 chunks
+    of 64 MB."""
+    import dataclasses
+
+    top = dataclasses.replace(core.default_topology(), limit_conn=64)
+    gb = SOLVE_CHUNKS * SOLVE_CHUNK_MB / 1024
+    bcast = core.Planner(top, max_relays=0).plan(core.PlanSpec(
+        objective="cost_min", src=BCAST_SRC, dsts=BCAST_DSTS,
+        tput_goal_gbps=10.0, volume_gb=123.0, backend="numpy",
+    )).with_volume(gb)
+    direct = core.direct_plan(top, _SRC, _DST, gb, num_vms=2)
+    return top, bcast, direct
+
+
+def solve_case(name, plans, transfer):
+    """(jobs, faults, sim kwargs, sim seed) of a ``SOLVE_CASES`` entry,
+    from ``solve_plans``' output and the same package's ``transfer``: the
+    benchmark's sim knobs; the faults halve the broadcast's first hop to
+    ``southamerica-east1`` and restore it, and lose a VM of
+    ``europe-west6``, a destination that relays."""
+    top, bcast, direct = plans
+    which, relay, with_faults = SOLVE_CASES[name]
+    plan = bcast if which == "bcast" else direct
+    jobs = [transfer.TransferJob(plan, name, chunk_mb=SOLVE_CHUNK_MB)]
+    faults = []
+    if with_faults:
+        a, b = top.index(BCAST_SRC), top.index("gcp:southamerica-east1")
+        faults = [
+            transfer.LinkDegrade(t_s=10.0, src=a, dst=b, factor=0.5),
+            transfer.VMFailure(t_s=20.0, job=0,
+                               region=top.index("gcp:europe-west6"), count=1),
+            transfer.LinkRestore(t_s=30.0, src=a, dst=b, factor=2.0),
+        ]
+    kw = dict(link_capacity_scale=2.0, straggler_prob=0.05,
+              straggler_speed=(0.15, 0.5), relay_buffer_chunks=relay)
+    return jobs, faults, kw, SOLVE_SEED
+
+
 def qkv(seed, b, s, h, kv, d):
     """f32 q [B,S,H,D] and k, v [B,S,Kv,D]."""
     rng = np.random.default_rng(seed)

@@ -31,12 +31,15 @@ from repro_torch.obs.trace import on_track
 from test_torch_cases import (
     SEGSUM_CASES,
     SIM_SCENARIOS,
+    SOLVE_CASES,
     WATERFILL_CHAIN_CASES,
     fleet_jobs,
     qkv,
     quantize_inputs,
     segsum_case,
     sim_scenario,
+    solve_case,
+    solve_plans,
     ssd_inputs,
     waterfill_case,
     waterfill_chain_case,
@@ -433,6 +436,43 @@ def test_graph_sim_equals_cpu_and_counts_every_launch(name, port_top):
     for n in _STEP:
         assert d[n] == d["sim.iterations"], n
     assert d["kernels.segsum_ordered.launches"] == 0
+
+
+@pytest.fixture(scope="module")
+def solve_port_plans():
+    from repro_torch import core
+
+    return solve_plans(core)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SOLVE_CASES)
+def test_card_counts_the_solves_the_cpu_counts(name, solve_port_plans):
+    """On the card ``sim_post_f64`` adds ``changed`` to the state's count
+    of solves, as the solve read it (the host's after a sequential
+    cascade): ``sim.solves`` equals the CPU's for the same sim (the CPU's
+    equals the numpy engine's, ``tests/test_torch_sim_solves.py``)."""
+    _need_card()
+    from repro_torch import transfer
+    from repro_torch.transfer import simulate
+
+    jobs, faults, kw, seed = solve_case(name, solve_port_plans, transfer)
+    names = ("sim.solves", "sim.seq_cascades")
+
+    def run(device):
+        before = {n: REGISTRY.counter(n).value for n in names}
+        res = simulate(jobs, faults, engine="torch", device=device,
+                       seed=seed, **kw)
+        return res, {n: REGISTRY.counter(n).value - before[n] for n in names}
+
+    got, d_card = run("cuda")
+    torch.cuda.synchronize()
+    want, d_cpu = run("cpu")
+    assert got.events == want.events and got.time_s == want.time_s
+    for a, b in zip(got.jobs, want.jobs):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert d_card == d_cpu and d_card["sim.solves"] > 0
+    assert (d_card["sim.seq_cascades"] > 0) == (name == "bcast_relay_full")
 
 
 def _direct_2vm(top, chunks: int):
