@@ -110,6 +110,16 @@ CHUNK_MB = 64.0
 # three routes; 48 of them hold 24,576 lanes, twice what one water-filling
 # block's shared memory takes, so every solve takes the cluster kernel
 FLEET_JOBS, FLEET_CHUNKS, FLEET_CHUNK_MB = 48, 8, 16.0
+# [waterfill_one_block]: Skyplane's broadcast test (skyplane/broadcast/test/
+# bc_objstore.py), OPT-66B from gcp:us-east1 to six regions, planned
+# cost_min at 10 Gbit/s a destination, 64 connections a VM, no relay region
+# beyond the destinations: 12 VMs, 36 edges; its solves have 151 to 422
+# live lanes
+BCAST_SRC = "gcp:us-east1"
+BCAST_DSTS = ("gcp:australia-southeast1", "gcp:southamerica-east1",
+              "gcp:europe-west4", "gcp:europe-west6", "gcp:asia-east1",
+              "gcp:europe-west2")
+BCAST_LIVE = (151, 338, 422)
 FLEET_ROUTES = (("aws:us-east-1", "aws:ap-southeast-2"),
                 ("aws:us-west-2", "aws:eu-central-1"),
                 ("gcp:us-central1", "gcp:europe-west1"))
@@ -354,10 +364,11 @@ def kernel_ms(fn, reps: int) -> float:
 
 
 # ------------------------------------------------------------- kernel inputs
-def wf_inputs(su, dev, dtype, *, seed=None, edges=True):
+def wf_inputs(su, dev, dtype, *, seed=None, edges=True, n_live=None):
     """Water-filling operands at a materialized scenario's shapes: every
-    conn live (``seed`` None) or a seeded live subset with junk caps and
-    indices in the dead lanes."""
+    conn live (``seed`` None) or a seeded live subset (about 70% of the
+    conns, or exactly ``n_live``) with junk caps and indices in the dead
+    lanes."""
     nc = su.conn_job.shape[0]
     ncp = max(8, -(-nc // 8) * 8)
     nv, ne = su.vm_eg_cap.shape[0], len(su.edges_used)
@@ -371,6 +382,9 @@ def wf_inputs(su, dev, dtype, *, seed=None, edges=True):
     if seed is not None:
         rng = np.random.default_rng(seed)
         active = (rng.uniform(size=ncp) < 0.7) & (np.arange(ncp) < nc)
+        if n_live is not None:
+            active = np.zeros(ncp, dtype=bool)
+            active[rng.choice(nc, n_live, replace=False)] = True
         dead = ~active
         caps[dead] = 123.0
         src[dead] = rng.integers(0, nv, dead.sum())
@@ -609,6 +623,114 @@ def phase_waterfill(shapes, dev, errs):
         )
     say("waterfill", cases=n, f64_bitwise=True,
         max_abs_err={k: v for k, v in errs.items()}, f64_times=times)
+
+
+def one_block_launch(args: dict, clocks=None):
+    """A launcher of the staged f64 one-block kernel on ``args``, straight
+    through the library, the clocked instantiation where ``clocks``
+    (int64 [128], zeroed) is given (the library built with them,
+    ``build.CLOCKED``)."""
+    from repro_torch.kernels.waterfill import build, ops
+
+    lib = build.load() if clocks is None else build.load_clocked()
+    nc, nv = args["caps"].shape[0], args["eg_cap"].shape[0]
+    ne = args["ed_cap"].shape[0]
+    segs = ops.build_segments(args["src"], args["dst"], args["eid"], nv, ne)
+    out = torch.empty_like(args["caps"])
+    held = [args[k] for k in ("caps", "src", "dst", "eid", "eg_cap",
+                              "in_cap", "ed_cap", "active")]
+    held += [None, None, *segs, out]
+    ptrs = [None if t is None else t.data_ptr() for t in held]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if clocks is None:
+            rc = lib.waterfill_f64_shared(*ptrs, nc, nv, ne, ne, -1, stream)
+        else:
+            rc = lib.waterfill_f64_clocked(*ptrs, nc, nv, ne, ne, -1,
+                                           clocks.data_ptr(), stream)
+        check(rc == 0, f"one-block launch failed: CUDA error {rc}")
+        return out
+    run.tensors = held  # what ptrs point into lives as long as the launcher
+    return run
+
+
+ONE_BLOCK_PASSES = ("A", "B", "C", "fold", "A_work", "B_work", "C_work")
+
+
+def one_block_clocks(args: dict) -> dict:
+    """One solve of the staged kernel with its clock probes (thread 0's
+    cycles per pass, ``csrc/waterfill.cu``'s ``BlockClock``): staging, the
+    first counts, each pass summed over the rounds (the first 17), the
+    slowest thread's fold adds in (C) likewise, each pass's slowest warp
+    to its barrier likewise, and the whole solve."""
+    n = len(ONE_BLOCK_PASSES)
+    clk = torch.zeros(128, dtype=torch.int64, device=args["caps"].device)
+    one_block_launch(args, clk)()
+    c = clk.cpu().tolist()
+    rounds = [c[4 + n * k: 4 + n * (k + 1)]
+              for k in range(min(c[2], 124 // n))]
+    return {"stage": c[0], "count": c[1], "rounds": c[2], "total": c[3],
+            **{p: sum(r[i] for r in rounds)
+               for i, p in enumerate(ONE_BLOCK_PASSES)}}
+
+
+def bcast_su(top):
+    """The broadcast's materialized scenario (``BCAST_SRC`` to
+    ``BCAST_DSTS``, 64 connections a VM, 123 GB)."""
+    import dataclasses
+
+    from repro_torch.core import Planner, PlanSpec
+    from repro_torch.transfer import TransferJob
+    from repro_torch.transfer.events import materialize_jobs
+
+    top = dataclasses.replace(top, limit_conn=64)
+    plan = Planner(top, max_relays=0).plan(PlanSpec(
+        objective="cost_min", src=BCAST_SRC, dsts=BCAST_DSTS,
+        tput_goal_gbps=10.0, volume_gb=123.0, backend="numpy"))
+    return materialize_jobs([TransferJob(plan, "bcast", chunk_mb=CHUNK_MB)])
+
+
+def phase_waterfill_one_block(shapes, dev, errs) -> dict:
+    """The staged f64 one-block kernel at the sims' small solves: the
+    broadcast's shape with 151, 338 and 422 live lanes and every lane
+    live, and the Fig. 6 sim's (600 lanes, one edge) with every lane live.
+    The kernel bitwise against the plain version, then its device time,
+    its per-pass clock split, the chain bound and the plain version's
+    time. Returns the times for the kernels line."""
+    from repro_torch.kernels.waterfill import ops, ref
+
+    cases = [(f"bcast_{n}", wf_inputs(shapes["bcast"], dev, torch.float64,
+                                      seed=n, n_live=n))
+             for n in BCAST_LIVE]
+    cases += [(label, wf_inputs(shapes[k], dev, torch.float64))
+              for label, k in (("bcast", "bcast"), ("sim", "sim"))]
+    times = {}
+    for label, args in cases:
+        nc, nv = args["caps"].shape[0], args["eg_cap"].shape[0]
+        ne = args["ed_cap"].shape[0]
+        check(ops.takes_shared(nc, nv, ne),
+              f"{label}: the staged kernel does not take this solve")
+        want = ops.waterfill_rates(**to_cpu(args))
+        kw = dict(args, n_vms=nv, n_edges=ne)
+        rounds, chain = live_rounds(args, "f64")
+        _, _, terms = wf_bound(args, rounds, "f64", chain)
+        plain_ms = cuda_ms(lambda: ref.masked_maxmin_rates(**kw), 3)
+        t = dict(conns=nc, vms=nv, edges=ne,
+                 live=int(args["active"].sum()), rounds=rounds, chain=chain)
+        name = "waterfill_f64_shared"
+        run = one_block_launch(args)
+        got = run().cpu()
+        errs[name] = max(errs.get(name, 0.0),
+                         float((got - want).abs().max()))
+        check(torch.equal(got, want), f"{name} != plain ({label})")
+        ms = kernel_ms(run, 50)
+        t[name] = dict(ms=ms, call_ms=cuda_ms(run, 200), plain_ms=plain_ms,
+                       bound_terms_ms=terms, chain_share=terms["chain"] / ms,
+                       clocks=one_block_clocks(args))
+        times[label] = t
+    say("waterfill_one_block", f64_bitwise=True, times=times)
+    return times
 
 
 def wf_lanes(args: dict, precision: str) -> torch.Tensor:
@@ -1214,6 +1336,20 @@ def chaos_suite(top, **svc_kw):
     return out
 
 
+def by_kernel(counters: dict) -> dict:
+    """The launch counters' values by kernel, without ``waterfill_f64``:
+    its counter (``kernels.waterfill_f64.launches``, which the benchmark
+    sums) counts the f64 one-block launches, which are all the staged
+    kernel's (``waterfill_f64_shared``), and is checked equal to it."""
+    from repro_torch.obs.metrics import REGISTRY
+
+    n = {k: int(REGISTRY.counter(c).value) for k, c in counters.items()}
+    f64, staged = n.pop("waterfill_f64"), n["waterfill_f64_shared"]
+    check(f64 == staged, f"{f64} f64 one-block launches, {staged} of them "
+          "on the staged kernel")
+    return n
+
+
 def phase_service(name, suite, top, counters, extra=None,
                   cpu_suite=None) -> list:
     """One service configuration on the card (``backend="torch"``,
@@ -1227,9 +1363,7 @@ def phase_service(name, suite, top, counters, extra=None,
     ``cpu_suite`` (default ``suite``) may run the first of the card's
     runs alone on the CPU; the rest are then checked for lost chunks and
     launches only. Returns the card run's reports."""
-    from repro_torch.obs.metrics import REGISTRY
-
-    before = {k: REGISTRY.counter(c).value for k, c in counters.items()}
+    before = by_kernel(counters)
     g0 = graph_counts()
     with timed_blocks() as spans:
         t0 = time.perf_counter()
@@ -1237,8 +1371,7 @@ def phase_service(name, suite, top, counters, extra=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     graphs = graph_delta(g0)
-    launches = {k: int(REGISTRY.counter(c).value - before[k])
-                for k, c in counters.items()}
+    launches = {k: n - before[k] for k, n in by_kernel(counters).items()}
     busy_s = sum(a.elapsed_time(b) for a, b, *_ in spans) / 1e3
     t0 = time.perf_counter()
     cpu = (cpu_suite or suite)(top, backend="torch", device="cpu",
@@ -1650,7 +1783,7 @@ def phase_profile(jobs):
     t0 = time.perf_counter()
     res, dev = profiled(lambda: simulate(jobs, horizon_s=horizon))
     wall = time.perf_counter() - t0
-    wf = sorted((s, e) for n, s, e in dev if "waterfill_kernel" in n)
+    wf = sorted((s, e) for n, s, e in dev if "waterfill" in n)
     check(len(wf) > 2 * SIM_BLOCK, "the profiler saw no kernel launched "
           f"from a CUDA graph ({len(wf)} water-filling kernels)")
     lo, hi = wf[SIM_BLOCK][0], wf[-1][1]
@@ -1676,55 +1809,54 @@ def phase_profile(jobs):
         top_device_us={k: round(v, 1) for k, v in top})
 
 
-def phase_kernels(shapes, dev, launches, errs, cluster_times):
+def phase_kernels(shapes, dev, launches, errs, cluster_times,
+                  one_block_times):
     from repro_torch.kernels.waterfill import ops, ref
 
     out, extra = [], {}
     su = shapes["sim"]
-    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
-        name = f"waterfill_{precision}"
-        per_shape = {}
-        for label in ("sim", "sim_1e5"):  # the shared-memory kernel's
-            args = wf_inputs(shapes[label], dev, dtype)
-            segs = ops.build_segments(args["src"], args["dst"], args["eid"],
-                                      args["eg_cap"].shape[0],
-                                      args["ed_cap"].shape[0])
-            kw = dict(args, n_vms=args["eg_cap"].shape[0],
-                      n_edges=args["ed_cap"].shape[0])
-            if precision == "f64":
-                def plain():
-                    return ref.masked_maxmin_rates(**kw)
-            else:
-                n_it = 2 * kw["n_vms"] + kw["n_edges"] + 4
-                kw.pop("n_vms"), kw.pop("n_edges")
+    # the one-block kernel, which takes the f32 solves
+    name = "waterfill_f32"
+    per_shape = {}
+    for label in ("sim", "sim_1e5"):
+        args = wf_inputs(shapes[label], dev, torch.float32)
+        segs = ops.build_segments(args["src"], args["dst"], args["eid"],
+                                  args["eg_cap"].shape[0],
+                                  args["ed_cap"].shape[0])
+        kw = dict(args)
+        n_it = 2 * args["eg_cap"].shape[0] + args["ed_cap"].shape[0] + 4
 
-                def plain():
-                    return ref.waterfill_rounds_f32(**kw, n_iters=n_it)
+        def plain():
+            return ref.waterfill_rounds_f32(**kw, n_iters=n_it)
 
-            def kernel():
-                return ops.waterfill_rates(**args, precision=precision,
-                                           segments=segs)
-            got = kernel().cpu()
-            want = ops.waterfill_rates(**to_cpu(args), precision=precision)
-            errs[name] = max(errs[name], float((got - want).abs().max()))
-            rounds, chain = live_rounds(args, precision)
-            # the chain term is f64 adds: the f64 kernel's alone
-            _, _, terms = wf_bound(args, rounds, precision,
-                                   chain if precision == "f64" else 0)
-            ms = kernel_ms(kernel, 50)
-            per_shape[label] = dict(
-                conns=args["caps"].shape[0], vms=args["eg_cap"].shape[0],
-                edges=args["ed_cap"].shape[0], rounds=rounds, ms=ms,
-                call_ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 5),
-                bound_terms_ms=terms,
-            )
-            if "chain" in terms:
-                per_shape[label].update(
-                    chain=chain, ns_per_chained_add=ms * 1e6 / max(chain, 1),
-                    chain_share=terms["chain"] / ms)
-        out.append(kernel_entry(name, WF_TPU, launches[name], errs[name],
-                                per_shape["sim"]))
-        extra[name] = per_shape
+        def kernel():
+            return ops.waterfill_rates(**args, precision="f32",
+                                       segments=segs)
+        got = kernel().cpu()
+        want = ops.waterfill_rates(**to_cpu(args), precision="f32")
+        errs[name] = max(errs[name], float((got - want).abs().max()))
+        rounds, _ = live_rounds(args, "f32")
+        _, _, terms = wf_bound(args, rounds, "f32", 0)  # no f64 chain
+        ms = kernel_ms(kernel, 50)
+        per_shape[label] = dict(
+            conns=args["caps"].shape[0], vms=args["eg_cap"].shape[0],
+            edges=args["ed_cap"].shape[0], rounds=rounds, ms=ms,
+            call_ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 5),
+            bound_terms_ms=terms,
+        )
+    out.append(kernel_entry(name, WF_TPU, launches[name], errs[name],
+                            per_shape["sim"]))
+    extra[name] = per_shape
+    # the staged one-block kernel at the Fig. 6 sim's shape, and at the
+    # broadcast's, timed by [waterfill_one_block]
+    name = "waterfill_f64_shared"
+    out.append(dict(
+        kernel_entry(name, WF_TPU, launches[name], errs[name],
+                     one_block_times["sim"][name]),
+        bcast_ms={k: t[name]["ms"] for k, t in one_block_times.items()
+                  if k.startswith("bcast")},
+    ))
+    extra[name] = one_block_times
     # the cluster kernel (f64, the sim's solver) at the fleet's shape,
     # where the fleet sim ran it, timed by [waterfill_cluster]
     name = "waterfill_f64_cluster"
@@ -3957,12 +4089,18 @@ def main(argv=None) -> int:
         "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
         "fleet": fleet_su,
     }, dev, errs)
+    one_block_times = phase_waterfill_one_block({
+        "sim": materialize_jobs(fig6_jobs(top, shape_plan)[0]),
+        "bcast": bcast_su(top),
+    }, dev, errs)
 
-    # ---- the main path: every launch count starts at 0 here
+    # ---- the main path: every launch count starts at 0 here (launches by
+    # kernel, by_kernel)
     counters = {
         "waterfill_f64": "kernels.waterfill_f64.launches",
         "waterfill_f32": "kernels.waterfill_f32.launches",
         "waterfill_f64_cluster": "kernels.waterfill_f64_cluster.launches",
+        "waterfill_f64_shared": "kernels.waterfill_f64_shared.launches",
         "segsum_ordered_f64": "kernels.segsum_ordered.launches",
         "sim_pre_f64": "kernels.sim_pre_f64.launches",
         "sim_post_f64": "kernels.sim_post_f64.launches",
@@ -3975,7 +4113,7 @@ def main(argv=None) -> int:
     big = big_jobs(top)
     phase_sim_1e5(big)
     phase_sim_fleet(top)
-    launches = {k: int(REGISTRY.counter(c).value) for k, c in counters.items()}
+    launches = by_kernel(counters)
     for k, n in launches.items():
         if k == "segsum_ordered_f64":  # folded into sim_post_f64
             check(n == 0, "the sim launched the ordered segment sum")
@@ -3986,15 +4124,13 @@ def main(argv=None) -> int:
     for c in counters.values():
         REGISTRY.counter(c).reset()
     service_reps = service_path(top, counters)
-    service_launches = {k: int(REGISTRY.counter(c).value)
-                        for k, c in counters.items()}
+    service_launches = by_kernel(counters)
 
     # ---- the calibrated path: every launch count starts at 0 here
     for c in counters.values():
         REGISTRY.counter(c).reset()
     cal_reps = calibrated_path(top, counters)
-    cal_launches = {k: int(REGISTRY.counter(c).value)
-                    for k, c in counters.items()}
+    cal_launches = by_kernel(counters)
     check(cal_launches["sim_pre_f64"] == cal_launches["sim_post_f64"] > 0
           and cal_launches["segsum_ordered_f64"] == 0 and sum(
         n for k, n in cal_launches.items() if k.startswith("waterfill")) > 0,
@@ -4007,7 +4143,7 @@ def main(argv=None) -> int:
                   "sim_1e5": materialize_jobs(big), "fleet": fleet_su}
     kernels, shapes = phase_kernels(sim_shapes, dev, {
         k: n + service_launches[k] + cal_launches[k]
-        for k, n in launches.items()}, errs, cluster_times)
+        for k, n in launches.items()}, errs, cluster_times, one_block_times)
     for k in kernels:
         k["launches_by_path"] = {"sim": launches[k["name"]],
                                  "service": service_launches[k["name"]],

@@ -21,12 +21,13 @@ _WATERFILL_ARGS = [_P] * 17 + [_I] * 5 + [_P]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("waterfill_f64", "waterfill_f32"):
+    for name in ("waterfill_f64_shared", "waterfill_f32"):
         fn = getattr(lib, name)
         fn.argtypes = _WATERFILL_ARGS
         fn.restype = _I
+    for name in ("waterfill_f64_cluster", "waterfill_f32_cluster"):
         # + the lane scratch before `out`, the clocks before the stream
-        fn = getattr(lib, f"{name}_cluster")
+        fn = getattr(lib, name)
         fn.argtypes = [_P] * 18 + [_I] * 5 + [_P, _P]
         fn.restype = _I
     lib.segsum_ordered_f64.argtypes = [_P, _P, _P, _P, _I, _P]
@@ -35,6 +36,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.f64_add_chain.restype = _I
     lib.waterfill_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.waterfill_smem_bytes.restype = ctypes.c_size_t
+    lib.waterfill_shared_smem_bytes.argtypes = [_I, _I, _I]
+    lib.waterfill_shared_smem_bytes.restype = ctypes.c_size_t
     lib.waterfill_smem_limit.argtypes = [_I]
     lib.waterfill_smem_limit.restype = ctypes.c_size_t
     lib.waterfill_scratch_bytes.argtypes = [_I, _I]
@@ -47,12 +50,28 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.waterfill_cluster_max.restype = _I
 
 
+def _declare_clocked(lib: ctypes.CDLL) -> None:
+    _declare(lib)
+    # + the clocks before the stream
+    lib.waterfill_f64_clocked.argtypes = [_P] * 17 + [_I] * 5 + [_P, _P]
+    lib.waterfill_f64_clocked.restype = _I
+
+
 LIBRARY = Library(SOURCE, NVCC_FLAGS, _declare)
+# the same source with the staged kernel's clock probes compiled in
+# (``waterfill_f64_clocked``): a per-pass split, never the sim's path
+CLOCKED = Library(SOURCE, NVCC_FLAGS + ("-DWATERFILL_CLOCKS",),
+                  _declare_clocked)
 
 
 def load() -> ctypes.CDLL:
     """The library, built and loaded at first call."""
     return LIBRARY.load()
+
+
+def load_clocked() -> ctypes.CDLL:
+    """The library with ``waterfill_f64_clocked``, built at first call."""
+    return CLOCKED.load()
 
 
 def build_info() -> dict:

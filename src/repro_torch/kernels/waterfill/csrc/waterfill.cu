@@ -2,6 +2,18 @@
 // past one block's shared memory, one thread-block cluster per solve; and
 // the sim's ordered segment sum.
 //
+// Two kernels take the solves of each precision, by size alone
+// (kernels/waterfill/ops.py::launch_plan mirrors the rule): an f64 solve
+// takes waterfill_shared_kernel where every operand fits one block's
+// shared memory (shared_smem_bytes, ~54 bytes a lane: ~3,800 lanes at 12
+// VMs and 36 edges), else waterfill_cluster_kernel; an f32 solve takes
+// waterfill_kernel where its lanes fit one block (smem_bytes, 9 bytes a
+// lane: ~24,000 lanes), else the cluster kernel. waterfill_kernel has no
+// f64 instantiation: on an H100 (700 W) a cluster of two blocks solved
+// 4,096 to 11,264 lanes (8 to 22 direct jobs of 8 VMs) in 0.059-0.101 ms
+// against its 0.076-0.219, and below ~3,800 lanes the staged kernel beats
+// it (11.2 against 24.6 us a broadcast solve).
+//
 // Replaces the TPU kernel kernels/waterfill/waterfill.py::_waterfill_kernel
 // of the reference package (launched by waterfill_8x), and on the sim's
 // default path its f64 twin kernels/waterfill/ref.py::masked_maxmin_rates.
@@ -15,14 +27,14 @@
 // longest segment's chain (the edge, which may hold every lane) sets the
 // time of a round; launch latency comes on top, once per solve.
 //
-// What the design does about it:
+// What waterfill_kernel does about it (designed around the f64 chain):
 //   * the solve's state lives in shared memory for the whole solve: caps,
-//     rates and a state byte per lane (17 bytes at f64), budgets, fair
-//     shares and unfixed counts per segment, and each warp's run of new
-//     rates (24.75 KB at f64), so one block takes ~12,100 lanes. The lanes'
+//     rates and a state byte per lane, budgets, fair shares and unfixed
+//     counts per segment, and each warp's run of new rates. The lanes'
 //     segment ids and the CSR lists stay in device memory and are read
-//     through L1, which holds them at the sims' sizes: staging them in
-//     shared memory measured no faster;
+//     through L1 (staging them measured no faster at the Fig. 6 sim's 600
+//     lanes on one edge, where the one list's chain of 595 adds is the
+//     bound; the staged kernel below is the design for short lists);
 //   * each segment's unfixed count is set once and then loses the lanes
 //     fixed in it (integers, exact), and the new fair share bud / cnt is
 //     computed where the budget moves, so no round recounts;
@@ -44,15 +56,44 @@
 //     the segment's own warp through a ring; a thread per segment reading
 //     through the lane ids (each term waits on two dependent loads); a run
 //     of 16-bit lane ids folded through the ids; folding 8-term groups
-//     flagged nonzero by a ballot. Measured faster at the sim's shape
-//     (~14 against ~16 us) but at 64 bytes a lane (~3,600 lanes a solve):
-//     every operand staged and each round's rates scattered to every
-//     list position, so that a thread per short segment folds a
-//     contiguous run;
+//     flagged nonzero by a ballot;
 //   * the lane pass of the next round cannot start under a long fold: every
 //     lane reads its edge's new share, which the edge's fold produces last;
-//   * one block holds a solve of ~12,100 lanes at f64; the chain is serial
-//     anyway, so below that no cluster is needed.
+//   * one block holds a solve of ~24,000 lanes at f32.
+//
+// waterfill_shared_kernel, for the small solves. A real solve of Skyplane's
+// broadcast (12 VMs, 36 edges, 732 lanes, 151-422 of them active, 4 rounds
+// on average) has 60 lists of 7 to 105 lanes: its adds are few, and
+// waterfill_kernel spent its time walking them (each warp five lists in
+// turn, every step two dependent loads through L1) and counting (its
+// clock64 split over those solves: (C) 54% of the solve, the first counts
+// 15%). So:
+//   * one staging pass loads every operand with its loads in flight at
+//     once: cap, state, the lanes' three segments and their positions in
+//     the three lists (16-bit), each list position's active bit, budgets
+//     and list bounds; after it no pass waits on device memory;
+//   * the first counts are the popcounts of each segment's active bits;
+//   * the lists lie end to end, a rate per position; a lane fixed in a
+//     round writes its rate at its three positions and sets their fresh
+//     bits (every other position holds +0.0: a lane's positions are
+//     cleared the round after), so a segment's new lanes are its fresh
+//     bits and its budget's loss is the
+//     fold of a contiguous run: a thread folds a list of up to 64
+//     positions outright (adding +0.0 is exact), a warp compacts a longer
+//     one's nonzero rates for its lane 0 to fold, all segments at once;
+//   * the least share of the round is the least share of a segment with
+//     an unfixed lane (a lane's share is one of its segments'), so one warp
+//     reads it from the 60 segments while the others pass their lanes, and
+//     one barrier ORs the cap hits (bar.red.or);
+//   * the loops that one thread runs once at these sizes are not unrolled.
+// Measured on an H100 (700 W) over 200 recorded broadcast solves: 11.2 us a
+// solve against waterfill_kernel's 24.6; the Fig. 6 sim's 600 lanes on one
+// edge 12.4 against 15.9. Measured slower: the least share from the lanes
+// (a warp reduction, then a 64-bit shared atomic, which is a CAS loop, or
+// a reduction of the warps' words after the barrier); a thread a segment
+// folding only its fresh positions, found bit by bit with __ffs, or ranked
+// first by popcounts; a warp for every list; counts by warp-aggregated
+// shared atomics (__match_any_sync); 256, 384, 512 and 1,024 threads.
 //
 // Past one block (waterfill_cluster_kernel, the sim's choice by
 // kernels/waterfill/ops.py::needs_cluster) a solve runs on one cluster of
@@ -92,7 +133,8 @@
 // layout (one-hot scatter matmuls, 8-row replicated tiles) is not carried
 // over: here segment sums walk CSR lists.
 //
-// Each kernel has two instantiations:
+// The cluster kernel has two instantiations, waterfill_shared_kernel the
+// double one alone and waterfill_kernel the float one alone:
 //   double — the sim's parity solver: +inf shares, eps 1e-12, round bound
 //            2*nv_active + ne_bound + 4 with nv_active taken from the active
 //            lanes. Bitwise equal to the plain f64 version: every floating
@@ -188,6 +230,81 @@ __device__ __forceinline__ T fold_run(const T* run, int n, T acc) {
   for (int u = 0; u < 8; ++u) acc = acc + (u < n - k ? cur[u] : T(0));
   return acc;
 }
+
+// The staged kernel's clock probes, compiled in only where kOn: per
+// pass, thread 0's cycles from the barrier that began it to the one that
+// ended it, into the caller's clocks[] (int64 [128], zeroed): staging, the
+// first counts, the rounds that ran (A), the whole solve, then per round
+// (A), (B), (C), the slowest thread's fold adds in (C), and for each of
+// (A), (B) and (C) the slowest warp's cycles from the pass's start to its
+// barrier.
+enum BlockClock {
+  kBClkStage = 0,
+  kBClkCount = 1,
+  kBClkRounds = 2,
+  kBClkTotal = 3,
+  kBClkRound0 = 4,
+};
+enum RoundClock {
+  kBClkA = 0,
+  kBClkB = 1,
+  kBClkC = 2,
+  kBClkFold = 3,
+  kBClkWork = 4,  // then (A), (B), (C): the slowest warp's time to the barrier
+};
+constexpr int kBClkPerRound = 7;
+constexpr int kBClkMaxRounds = (128 - kBClkRound0) / kBClkPerRound;
+
+template <bool kOn>
+struct Probe {
+  long long* clocks;
+  long long t0 = 0, last = 0, folds = 0, pass = 0;
+  __device__ explicit Probe(long long* c) : clocks(c) {
+    if (kOn) t0 = last = clock64();
+  }
+  __device__ long long now() const { return kOn ? clock64() : 0; }
+  __device__ void put(int slot) {
+    if (!kOn || threadIdx.x != 0) return;
+    const long long t = clock64();
+    if (slot >= 0) clocks[slot] = t - last;
+    last = t;
+  }
+  __device__ void mark(int slot) { put(slot); }
+  __device__ void mark_round(int k, int pass) {
+    put(k < kBClkMaxRounds ? kBClkRound0 + kBClkPerRound * k + pass : -1);
+  }
+  __device__ void fold(long long f0) {
+    if (kOn) folds += clock64() - f0;
+  }
+  // every thread, where a pass starts
+  __device__ void start() {
+    if (kOn) pass = clock64();
+  }
+  // every thread, before the barrier that ends pass p of round k
+  __device__ void arrive(int k, int p) {
+    if (kOn && (threadIdx.x & 31) == 0 && k < kBClkMaxRounds)
+      atomicMax(reinterpret_cast<unsigned long long*>(
+                    clocks + kBClkRound0 + kBClkPerRound * k + kBClkWork + p),
+                (unsigned long long)(clock64() - pass));
+  }
+  // the warp's slowest fold of round k, at most over the block; every lane
+  // of the warp calls it
+  __device__ void fold_max(int k) {
+    if (!kOn) return;
+    long long f = folds;
+    for (int o = 16; o > 0; o >>= 1) f = max(f, __shfl_xor_sync(kFull, f, o));
+    folds = 0;
+    if ((threadIdx.x & 31) == 0 && k < kBClkMaxRounds)
+      atomicMax(reinterpret_cast<unsigned long long*>(
+                    clocks + kBClkRound0 + kBClkPerRound * k + kBClkFold),
+                (unsigned long long)f);
+  }
+  __device__ void finish(int k) {
+    if (!kOn || threadIdx.x != 0) return;
+    clocks[kBClkRounds] = k;
+    clocks[kBClkTotal] = clock64() - t0;
+  }
+};
 
 // Dynamic shared memory of one solve, in bytes: reals first (the
 // reduction's minima, cap and rate per lane, each warp's run of new rates
@@ -394,6 +511,379 @@ waterfill_kernel(const T* __restrict__ caps, const int* __restrict__ src,
   }
   for (int c = tid; c < nc; c += kThreads)
     out[c] = st[c] == 1 ? T(0) : rate[c];
+}
+
+// ------------------------------------------ one block, every operand staged
+//
+// The layout of the small solves: cap, rate and state byte per lane, each
+// lane's three segments and its position in each of the three CSR lists
+// (16-bit), and the lists laid end to end (egress, ingress, edges, each
+// from a multiple of 32 positions on) with a rate and two bits a
+// position: its lane is active, and its lane was fixed this round
+// (fresh). A lane fixed this round writes its rate at its three positions
+// and sets their fresh bits; every other position holds +0.0. A segment's
+// new lanes are its fresh bits, and its budget's loss is the fold of its
+// contiguous run in list order, which is its lanes' ascending order. About
+// 54 bytes a lane and 28 a segment.
+constexpr int kSThreads = 768;
+constexpr int kSWarps = kSThreads / 32;
+constexpr int kSBatch = 2;      // lanes a thread stages at once
+constexpr int kSRun = 128;      // a long list's positions a warp takes at once
+constexpr int kShortList = 64;  // lists up to this long: a thread each
+constexpr unsigned long long kInfBits = 0x7ff0000000000000ull;  // +inf
+
+// Dynamic shared memory of one staged solve, in bytes: reals (each warp's
+// run of nonzero rates with fold_run's read-ahead, the round's least
+// share, cap and rate per lane, a rate per list position with the fold's
+// read-ahead, budget and share per segment), ints (the largest active VM,
+// whether the round has an unfixed lane, the long and short list counts,
+// per segment its unfixed count, first list position (and the end's) and
+// task slot, then the active and the fresh bit of every list position),
+// the lanes' six 16-bit segment ids and positions, and a state byte per
+// lane.
+size_t shared_smem_bytes(int nc, int nv, int ne) {
+  const size_t nseg = 2 * (size_t)nv + (size_t)ne;
+  const size_t ncw = ((size_t)nc + 31) & ~(size_t)31;  // a list's positions
+  const size_t reals = (size_t)kSWarps * (kSRun + 8) + 1 + 2 * (size_t)nc
+                       + 3 * ncw + 8 + 2 * nseg;
+  const size_t ints = 4 + 3 * nseg + 1 + 2 * (3 * ncw / 32);
+  const size_t b = reals * 8 + ints * 4 + 12 * (size_t)nc + (size_t)nc;
+  return (b + 15) & ~(size_t)15;
+}
+
+// The least of the warp's x, each the bits of a double >= +0.0 (whose
+// order is theirs): the high words' least, then the low words' among them.
+__device__ __forceinline__ unsigned long long warp_min_bits(
+    unsigned long long x) {
+  const unsigned hi = __reduce_min_sync(kFull, (unsigned)(x >> 32));
+  const unsigned lo = __reduce_min_sync(
+      kFull, (unsigned)(x >> 32) == hi ? (unsigned)x : 0xffffffffu);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// Word w of a bit array, limited to positions [b, e) (b < e).
+__device__ __forceinline__ unsigned bits_in(const unsigned* words, int w,
+                                            int b, int e) {
+  unsigned m = words[w];
+  if (w == b >> 5) m &= 0xffffffffu << (b & 31);
+  if (w == (e - 1) >> 5) m &= 0xffffffffu >> (31 - ((e - 1) & 31));
+  return m;
+}
+
+// The set bits of a bit array in positions [b, e).
+__device__ __forceinline__ int count_bits(const unsigned* words, int b,
+                                          int e) {
+  int n = 0;
+  for (int w = b >> 5; b < e && w <= (e - 1) >> 5; ++w)
+    n += __popc(bits_in(words, w, b, e));
+  return n;
+}
+
+template <bool kClocks>
+__global__ void __launch_bounds__(kSThreads, 1)
+waterfill_shared_kernel(
+    const double* __restrict__ caps, const int* __restrict__ src,
+    const int* __restrict__ dst, const int* __restrict__ eid,
+    const double* __restrict__ eg0, const double* __restrict__ in0,
+    const double* __restrict__ ed0, const uint8_t* __restrict__ active,
+    const uint8_t* __restrict__ changed, const double* __restrict__ prev,
+    Csr cs, Csr cd, Csr ce, double* __restrict__ out, int nc, int nv, int ne,
+    int ne_bound, int n_iters, long long* clocks) {
+  using T = double;
+  using Bits = unsigned long long;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+
+  if (changed != nullptr && *changed == 0) {  // membership unchanged
+    for (int c = tid; c < nc; c += kSThreads) out[c] = prev[c];
+    return;
+  }
+  Probe<kClocks> probe(clocks);
+
+  const int nseg = 2 * nv + ne;
+  const int ncw = (nc + 31) & ~31;  // a list's positions
+  const int nwords = 3 * ncw / 32;
+  T* runs = reinterpret_cast<T*>(smem);  // [kSWarps][kSRun + 8]
+  T* run = runs + warp * (kSRun + 8);
+  T* least = runs + kSWarps * (kSRun + 8);  // the round's least share
+  T* cap = least + 1;                       // [nc]
+  // a fixed lane's rate; an unfixed lane's share of the round
+  T* rate = cap + nc;
+  T* pos_rate = rate + nc;          // [3 * ncw + 8] a fresh lane's rate
+  T* bud = pos_rate + 3 * ncw + 8;  // [nseg] egress, ingress, edge
+  T* share = bud + nseg;            // [nseg]
+  int* blk_v = reinterpret_cast<int*>(share + nseg);  // the largest active VM
+  int* blk_any = blk_v + 1;   // the round has an unfixed lane
+  int* n_task = blk_any + 1;  // [2] long lists, short lists
+  int* cnt = n_task + 2;      // [nseg] unfixed lanes
+  int* first = cnt + nseg;    // [nseg + 1] segment s: [first[s], first[s + 1])
+  // [nseg] the long lists' segments from the front, the short from the back
+  int* task = first + nseg + 1;
+  unsigned* act = reinterpret_cast<unsigned*>(task + nseg);  // [nwords]
+  unsigned* fresh = act + nwords;  // [nwords] the lane was fixed this round
+  uint16_t* seg = reinterpret_cast<uint16_t*>(fresh + nwords);  // [3][nc]
+  uint16_t* pos = seg + 3 * nc;                                 // [3][nc]
+  // st: 1 = unfixed active lane, 2 = fixed this round, 0 = fixed earlier or
+  // inactive
+  uint8_t* st = reinterpret_cast<uint8_t*>(pos + 3 * nc);
+
+  // ---- stage every operand once: index j is a lane, a position in each
+  // list and a segment; all of a batch's loads in flight, then the
+  // activity of the lanes at the list positions (loads that wait on the
+  // lists), then the stores. A warp's 32 positions are one word of each
+  // list's bits.
+  if (tid == 0) *blk_v = -1;
+  const int nj = max(ncw, nseg + 1);
+  for (int i0 = 0; i0 < nj; i0 += kSBatch * kSThreads) {
+    int sv[kSBatch], dv[kSBatch], ev[kSBatch], ls[kSBatch], ld[kSBatch],
+        le[kSBatch], fo[kSBatch];
+    T cp[kSBatch], bg[kSBatch];
+    bool a[kSBatch], as[kSBatch], ad[kSBatch], ae[kSBatch];
+#pragma unroll
+    for (int u = 0; u < kSBatch; ++u) {
+      const int j = i0 + u * kSThreads + tid;
+      const bool in = j < nc, ed = in && ne > 0;
+      cp[u] = in ? caps[j] : T(0);
+      a[u] = in && active[j] != 0;
+      sv[u] = in ? src[j] : 0;
+      dv[u] = in ? dst[j] : 0;
+      ev[u] = ed ? eid[j] : 0;
+      ls[u] = in ? cs.idx[j] : 0;
+      ld[u] = in ? cd.idx[j] : 0;
+      le[u] = ed ? ce.idx[j] : 0;
+      fo[u] = j > nseg ? 0
+                       : (j < nv ? cs.off[j]
+                                 : (j < 2 * nv ? ncw + cd.off[j - nv]
+                                               : 2 * ncw + ce.off[j - 2 * nv]));
+      bg[u] = j >= nseg ? T(0)
+                        : (j < nv ? eg0[j]
+                                  : (j < 2 * nv ? in0[j - nv]
+                                                : ed0[j - 2 * nv]));
+    }
+#pragma unroll
+    for (int u = 0; u < kSBatch; ++u) {
+      const int j = i0 + u * kSThreads + tid;
+      as[u] = j < nc && active[ls[u]] != 0;
+      ad[u] = j < nc && active[ld[u]] != 0;
+      ae[u] = j < nc && ne > 0 && active[le[u]] != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kSBatch; ++u) {
+      const int j = i0 + u * kSThreads + tid;
+      if (j < nc) {
+        cap[j] = cp[u];
+        rate[j] = T(0);
+        st[j] = a[u];
+        seg[j] = (uint16_t)sv[u];
+        seg[nc + j] = (uint16_t)(nv + dv[u]);
+        seg[2 * nc + j] = (uint16_t)(2 * nv + ev[u]);
+        pos[ls[u]] = (uint16_t)j;  // the lane at list position j
+        pos[nc + ld[u]] = (uint16_t)(ncw + j);
+        pos[2 * nc + le[u]] = (uint16_t)(2 * ncw + j);
+      }
+      if (j < ncw) {  // the whole warp: ncw and its first j are 32-aligned
+        const unsigned ms = __ballot_sync(kFull, as[u]);
+        const unsigned md = __ballot_sync(kFull, ad[u]);
+        const unsigned me = __ballot_sync(kFull, ae[u]);
+        const int w = j >> 5, nw = ncw >> 5;
+        if (lane == 0) {
+          act[w] = ms;
+          act[nw + w] = md;
+          act[2 * nw + w] = me;
+        }
+        pos_rate[j] = pos_rate[ncw + j] = pos_rate[2 * ncw + j] = T(0);
+      }
+      if (j < 8) pos_rate[3 * ncw + j] = T(0);
+      if (j <= nseg) first[j] = fo[u];
+      if (j < nseg) bud[j] = bg[u];
+    }
+  }
+  __syncthreads();
+  probe.mark(kBClkStage);
+
+  // ---- unfixed counts (each segment's active bits), first fair shares and
+  // the largest active VM, a thread a segment; warp 0 lists the long and
+  // the short lists for the rounds (the result does not depend on which
+  // warp or thread takes which)
+  auto is_long = [&](int s) { return first[s + 1] - first[s] > kShortList; };
+  if (warp == 0) {
+    int nl = 0, ns = 0;
+    for (int s0 = 0; s0 < nseg; s0 += 32) {
+      const int s = s0 + lane;
+      const bool lg = s < nseg && is_long(s), sh = s < nseg && !lg;
+      const unsigned ml = __ballot_sync(kFull, lg);
+      const unsigned ms = __ballot_sync(kFull, sh);
+      if (lg) task[nl + __popc(ml & lt)] = s;
+      if (sh) task[nseg - 1 - ns - __popc(ms & lt)] = s;
+      nl += __popc(ml);
+      ns += __popc(ms);
+    }
+    if (lane == 0) {
+      n_task[0] = nl;
+      n_task[1] = ns;
+    }
+  }
+#pragma unroll 1
+  for (int s = kSThreads - 1 - tid; s < nseg; s += kSThreads) {
+    const int n = count_bits(act, first[s], first[s + 1]);
+    cnt[s] = n;
+    share[s] = n > 0 ? bud[s] / T(n) : WF<T>::none();
+    if (n > 0 && s < 2 * nv) atomicMax(blk_v, s < nv ? s : s - nv);
+  }
+  __syncthreads();
+  probe.mark(kBClkCount);
+  const int n_long = n_task[0], n_short = n_task[1];
+  const int bound = n_iters >= 0 ? n_iters : 2 * (*blk_v + 1) + ne_bound + 4;
+
+  // budget loses the folded new rates, count the new lanes; new share
+  auto settle = [&](int s, T acc, int nnew) {
+    const T x = bud[s] - acc;
+    const T b = x < T(0) ? T(0) : x;
+    const int n = cnt[s] - nnew;
+    bud[s] = b;
+    cnt[s] = n;
+    share[s] = n > 0 ? b / T(n) : WF<T>::none();
+  };
+
+  const T eps = WF<T>::eps();
+  int k = 0;
+  for (; k < bound; ++k) {
+    // (A) each unfixed lane's share and cap-hit, one barrier ORs the hits;
+    // last round's fixes become old ones and leave the positions. The last
+    // warp (which holds lanes only past kSThreads - 32) finds the least
+    // share of an unfixed lane, which is the least share of a segment that
+    // holds one (a lane's share is one of its segments'; a segment with an
+    // unfixed lane gives it no more than its own), by its bits (every
+    // share is >= +0.0 once -0.0 is +0.0), and whether any does: none ends
+    // the solve.
+    probe.start();
+    if (warp == kSWarps - 1) {
+      Bits lo = kInfBits;
+      bool any_un = false;
+      for (int s = lane; s < nseg; s += 32) {
+        if (cnt[s] > 0) {
+          lo = min(lo, (Bits)__double_as_longlong(share[s] + T(0)));
+          any_un = true;
+        }
+      }
+      lo = warp_min_bits(lo);
+      any_un = __any_sync(kFull, any_un);
+      if (lane == 0) {
+        *least = __longlong_as_double((long long)lo);
+        *blk_any = any_un;
+      }
+    }
+    for (int w = tid; w < nwords; w += kSThreads) fresh[w] = 0;
+    int hit = 0;
+#pragma unroll 1
+    for (int c = tid; c < nc; c += kSThreads) {
+      const uint8_t sc = st[c];
+      if (sc == 2) {
+        st[c] = 0;
+        pos_rate[pos[c]] = T(0);
+        pos_rate[pos[nc + c]] = T(0);
+        if (ne > 0) pos_rate[pos[2 * nc + c]] = T(0);
+        continue;
+      }
+      if (sc != 1) continue;
+      T sh = tmin(share[seg[c]], share[seg[nc + c]]);
+      if (ne > 0) sh = tmin(sh, share[seg[2 * nc + c]]);
+      rate[c] = sh;
+      hit |= cap[c] <= sh + eps;
+    }
+    probe.arrive(k, kBClkA);
+    const bool anyc = __syncthreads_or(hit) != 0;
+    if (!*blk_any) break;
+    const T thresh = *least;
+    probe.mark_round(k, kBClkA);
+    probe.start();
+
+    // (B) fix the lanes this round binds: each writes its rate at its three
+    // list positions and sets their fresh bits
+#pragma unroll 1
+    for (int c = tid; c < nc; c += kSThreads) {
+      if (st[c] != 1) continue;
+      const T sh = rate[c], cp = cap[c];
+      if (!(anyc ? cp <= sh + eps : sh <= thresh + eps)) continue;
+      const T r = anyc ? cp : sh;
+      rate[c] = r;
+      st[c] = 2;
+      int at[3];
+#pragma unroll
+      for (int l = 0; l < 3; ++l) at[l] = pos[l * nc + c];
+#pragma unroll
+      for (int l = 0; l < 3; ++l) {
+        if (l == 2 && ne == 0) break;
+        pos_rate[at[l]] = r;
+        atomicOr(fresh + (at[l] >> 5), 1u << (at[l] & 31));
+      }
+    }
+    probe.arrive(k, kBClkB);
+    __syncthreads();
+    probe.mark_round(k, kBClkB);
+    probe.start();
+
+    // (C) each segment with fresh lanes folds its contiguous run in list
+    // order (the lanes' ascending order) and loses its fresh lanes from
+    // its count: a long one by a warp, which compacts the nonzero rates
+    // kSRun positions at a time for lane 0 to fold; a short one by a
+    // thread over every position, zeros included (+0.0 leaves a sum of
+    // terms >= +0.0 as it is). All segments at once.
+#pragma unroll 1
+    for (int u = warp; u < n_long; u += kSWarps) {
+      const int s = task[u];
+      const int b = first[s], e = first[s + 1];
+      int nnew = 0;
+      for (int w = (b >> 5) + lane; w <= (e - 1) >> 5; w += 32)
+        nnew += __popc(bits_in(fresh, w, b, e));
+      nnew = __reduce_add_sync(kFull, nnew);
+      if (nnew == 0) continue;
+      T acc = T(0);
+      for (int p0 = b; p0 < e; p0 += kSRun) {
+        T v[kSRun / 32];
+#pragma unroll
+        for (int t = 0; t < kSRun / 32; ++t) {
+          const int p = p0 + 32 * t + lane;
+          v[t] = p < e ? pos_rate[p] : T(0);
+        }
+        int nb = 0;
+#pragma unroll
+        for (int t = 0; t < kSRun / 32; ++t) {
+          const unsigned m = __ballot_sync(kFull, v[t] != T(0));
+          if (v[t] != T(0)) run[nb + __popc(m & lt)] = v[t];
+          nb += __popc(m);
+        }
+        __syncwarp();
+        if (lane == 0 && nb > 0) {
+          const long long f0 = probe.now();
+          acc = fold_run(run, nb, acc);
+          probe.fold(f0);
+        }
+        __syncwarp();
+      }
+      if (lane == 0) settle(s, acc, nnew);
+      __syncwarp();
+    }
+#pragma unroll 1
+    for (int u = kSThreads - 1 - tid; u < n_short; u += kSThreads) {
+      const int s = task[nseg - 1 - u];
+      const int b = first[s], e = first[s + 1];
+      const int nnew = count_bits(fresh, b, e);
+      if (nnew == 0) continue;
+      const long long f0 = probe.now();
+      const T acc = fold_run(pos_rate + b, e - b, T(0));
+      probe.fold(f0);
+      settle(s, acc, nnew);
+    }
+    probe.fold_max(k);
+    probe.arrive(k, kBClkC);
+    __syncthreads();
+    probe.mark_round(k, kBClkC);
+  }
+  for (int c = tid; c < nc; c += kSThreads)
+    out[c] = st[c] == 1 ? T(0) : rate[c];
+  probe.finish(k);
 }
 
 __global__ void __launch_bounds__(kSegsumThreads)
@@ -1024,6 +1514,17 @@ waterfill_cluster_kernel(
   cluster_sync_all();  // no block leaves while another may read its memory
 }
 
+// Raises kern's dynamic shared memory limit to smem where it is lower
+// (once per size increase; `configured` is the instantiation's own).
+template <typename K>
+cudaError_t configure(K kern, size_t smem, size_t& configured) {
+  if (smem <= configured) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) configured = smem;
+  return e;
+}
+
 template <typename T>
 int launch_waterfill(const void* caps, const void* src, const void* dst,
                      const void* eid, const void* eg, const void* in,
@@ -1036,13 +1537,8 @@ int launch_waterfill(const void* caps, const void* src, const void* dst,
   static size_t configured = 0;
   const size_t smem = smem_bytes(nc, nv, ne, (int)sizeof(T));
   if (smem > smem_limit((int)sizeof(T))) return (int)cudaErrorInvalidValue;
-  if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        waterfill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = smem;
-  }
+  cudaError_t e = configure(waterfill_kernel<T>, smem, configured);
+  if (e != cudaSuccess) return (int)e;
   Csr cs{(const int*)src_off, (const int*)src_idx};
   Csr cd{(const int*)dst_off, (const int*)dst_idx};
   Csr ce{(const int*)ed_off, (const int*)ed_idx};
@@ -1051,6 +1547,34 @@ int launch_waterfill(const void* caps, const void* src, const void* dst,
       (const T*)eg, (const T*)in, (const T*)ed, (const uint8_t*)active,
       (const uint8_t*)changed, (const T*)prev, cs, cd, ce, (T*)out, nc, nv,
       ne, ne_bound, n_iters);
+  return (int)cudaGetLastError();
+}
+
+template <bool kClocks>
+int launch_shared(const void* caps, const void* src, const void* dst,
+                  const void* eid, const void* eg, const void* in,
+                  const void* ed, const void* active, const void* changed,
+                  const void* prev, const void* src_off, const void* src_idx,
+                  const void* dst_off, const void* dst_idx,
+                  const void* ed_off, const void* ed_idx, void* out, int nc,
+                  int nv, int ne, int ne_bound, int n_iters, void* clocks,
+                  void* stream) {
+  static size_t configured = 0;
+  const size_t smem = shared_smem_bytes(nc, nv, ne);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure(waterfill_shared_kernel<kClocks>, smem,
+                            configured);
+  if (e != cudaSuccess) return (int)e;
+  Csr cs{(const int*)src_off, (const int*)src_idx};
+  Csr cd{(const int*)dst_off, (const int*)dst_idx};
+  Csr ce{(const int*)ed_off, (const int*)ed_idx};
+  waterfill_shared_kernel<kClocks>
+      <<<1, kSThreads, smem, (cudaStream_t)stream>>>(
+          (const double*)caps, (const int*)src, (const int*)dst,
+          (const int*)eid, (const double*)eg, (const double*)in,
+          (const double*)ed, (const uint8_t*)active, (const uint8_t*)changed,
+          (const double*)prev, cs, cd, ce, (double*)out, nc, nv, ne,
+          ne_bound, n_iters, (long long*)clocks);
   return (int)cudaGetLastError();
 }
 
@@ -1165,6 +1689,10 @@ size_t waterfill_smem_bytes(int nc, int nv, int ne, int elem) {
 
 size_t waterfill_smem_limit(int elem) { return smem_limit(elem); }
 
+size_t waterfill_shared_smem_bytes(int nc, int nv, int ne) {
+  return shared_smem_bytes(nc, nv, ne);
+}
+
 size_t waterfill_scratch_bytes(int nc, int elem) {
   return scratch_bytes(nc, elem);
 }
@@ -1190,18 +1718,33 @@ int waterfill_cluster_max() { return cluster_max(); }
   caps, src, dst, eid, eg, in, ed, active, changed, prev, src_off, src_idx, \
       dst_off, dst_idx, ed_off, ed_idx
 
-// the shared-memory kernels: every lane in one block's shared memory
-int waterfill_f64(WATERFILL_ARGS, void* out, int nc, int nv, int ne,
-                  int ne_bound, int n_iters, void* stream) {
-  return launch_waterfill<double>(WATERFILL_PASS, out, nc, nv, ne, ne_bound,
-                                  n_iters, stream);
-}
-
+// the one-block f32 kernel: every lane in one block's shared memory
 int waterfill_f32(WATERFILL_ARGS, void* out, int nc, int nv, int ne,
                   int ne_bound, int n_iters, void* stream) {
   return launch_waterfill<float>(WATERFILL_PASS, out, nc, nv, ne, ne_bound,
                                  n_iters, stream);
 }
+
+// the one-block f64 kernel, every operand staged in shared memory
+// (waterfill_shared_smem_bytes up to the limit)
+int waterfill_f64_shared(WATERFILL_ARGS, void* out, int nc, int nv, int ne,
+                         int ne_bound, int n_iters, void* stream) {
+  return launch_shared<false>(WATERFILL_PASS, out, nc, nv, ne, ne_bound,
+                              n_iters, nullptr, stream);
+}
+
+#ifdef WATERFILL_CLOCKS
+// the staged kernel with its clock probes compiled in: `clocks` (128
+// zeroed int64) receives the cycles per pass (enum BlockClock,
+// RoundClock). Built only with -DWATERFILL_CLOCKS (build.py's CLOCKED
+// library), so the sim's build does not compile it
+int waterfill_f64_clocked(WATERFILL_ARGS, void* out, int nc, int nv, int ne,
+                          int ne_bound, int n_iters, void* clocks,
+                          void* stream) {
+  return launch_shared<true>(WATERFILL_PASS, out, nc, nv, ne, ne_bound,
+                             n_iters, clocks, stream);
+}
+#endif  // WATERFILL_CLOCKS
 
 // the cluster kernels: one cluster of waterfill_cluster_plan's K blocks;
 // `lanes` (waterfill_scratch_bytes(nc, elem) bytes, 16-byte aligned) holds

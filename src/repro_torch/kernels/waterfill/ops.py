@@ -6,14 +6,17 @@ version (``ref.py``) for tensors on the CPU and launch the CUDA kernel
 and no fallback. Each launch adds one to its kernel's counter in the
 port's metrics registry (``kernels.waterfill_f64.launches``,
 ``kernels.waterfill_f32.launches``, ``kernels.segsum_ordered.launches``);
-CPU calls do not count. A solve whose lanes do not fit one block's shared
-memory takes the cluster kernel (one thread-block cluster of 2 to 16
-blocks per solve) when the caller hands it a lane scratch (``lanes``, of
-``scratch_bytes``, which the kernel uses only where the largest cluster's
-shared memory cannot hold the lanes); the sim decides that once per
-scenario by ``needs_cluster``, a mirror of the library's own size rule
-(``cluster_plan`` mirrors the cluster's size K and its bytes a block),
-and the cluster kernel counts on
+CPU calls do not count. One block takes an f64 solve whose every operand
+fits its shared memory staged (``shared_smem_bytes``: the staged kernel,
+which counts on ``kernels.waterfill_f64_shared.launches`` as well as on
+``kernels.waterfill_f64.launches``), and an f32 solve whose lanes fit it
+(``smem_bytes``). A larger solve takes the cluster kernel (one
+thread-block cluster of 2 to 16 blocks per solve) when the caller hands
+it a lane scratch (``lanes``, of ``scratch_bytes``, which the kernel uses
+only where the largest cluster's shared memory cannot hold the lanes);
+the sim decides that once per scenario by ``needs_cluster``, a mirror of
+the library's own size rule (``cluster_plan`` mirrors the cluster's size
+K and its bytes a block), and the cluster kernel counts on
 ``kernels.waterfill_{f64,f32}_cluster.launches``. A call under CUDA stream
 capture records the kernel into a graph and launches nothing: it adds one
 to the kernel's ``.recorded`` counter instead, and whoever replays the
@@ -45,12 +48,13 @@ _cluster_launches = {
     p: REGISTRY.counter(f"kernels.waterfill_{p}_cluster.launches")
     for p in _DTYPES
 }
+_shared_launches = REGISTRY.counter("kernels.waterfill_f64_shared.launches")
 _segsum_launches = REGISTRY.counter("kernels.segsum_ordered.launches")
 # (recorded under capture, launched) counter pairs of every kernel here
 GRAPH_COUNTERS = tuple(
     (REGISTRY.counter(c.name.replace(".launches", ".recorded")), c)
     for c in (*_launches.values(), *_cluster_launches.values(),
-              _segsum_launches)
+              _shared_launches, _segsum_launches)
 )
 _recorded = {c.name: r for r, c in GRAPH_COUNTERS}
 
@@ -69,18 +73,32 @@ def _count(launches: Counter) -> None:
 # holds the mirror equal to the library's own functions)
 SMEM_LIMIT = 232448  # dynamic shared memory one block may take (227 KB)
 _WARPS, _RUN = 12, 256
+_S_WARPS, _S_RUN = 24, 128
 _C_WARPS, _C_RUN, _RING, _RING_CHUNK = 16, 128, 4, 512
 MAX_CLUSTER = 16  # blocks, where the card holds one such cluster (else 8)
 _ELEM = {"f64": 8, "f32": 4}
 
 
 def smem_bytes(nc: int, nv: int, ne: int, elem: int) -> int:
-    """Shared memory of one solve in one block, every lane in it, as
-    ``waterfill_smem_bytes`` computes it."""
+    """Shared memory of one solve in the one-block kernel that takes the
+    f32 solves, every lane in it, as ``waterfill_smem_bytes`` computes
+    it."""
     nseg = 2 * nv + ne
     reals = _WARPS * (1 + _RUN + 8) + 2 * nc + 2 * nseg
     ints = _WARPS + 1 + nseg
     return (reals * elem + ints * 4 + nc + 15) & ~15
+
+
+def shared_smem_bytes(nc: int, nv: int, ne: int) -> int:
+    """Shared memory of one f64 solve in one block with every operand
+    staged (the lanes' segments and list positions, and a rate and two
+    bits a list position, each list from a multiple of 32 positions on), as
+    ``waterfill_shared_smem_bytes`` computes it."""
+    nseg = 2 * nv + ne
+    ncw = -(-nc // 32) * 32
+    reals = _S_WARPS * (_S_RUN + 8) + 1 + 2 * nc + 3 * ncw + 8 + 2 * nseg
+    ints = 4 + 3 * nseg + 1 + 2 * (3 * ncw // 32)
+    return (reals * 8 + ints * 4 + 12 * nc + nc + 15) & ~15
 
 
 def cluster_smem_bytes(nc: int, nv: int, ne: int, elem: int, k: int,
@@ -98,9 +116,10 @@ def cluster_smem_bytes(nc: int, nv: int, ne: int, elem: int, k: int,
 
 
 class LaunchPlan(NamedTuple):
-    """The kernel a solve takes (``waterfill_{p}`` or
-    ``waterfill_{p}_cluster``), its blocks, each block's shared memory, and
-    whether the lanes live there (else in the caller's scratch)."""
+    """The kernel a solve takes (``waterfill_f64_shared``,
+    ``waterfill_{p}`` or ``waterfill_{p}_cluster``), its blocks, each
+    block's shared memory, and whether the lanes live there (else in the
+    caller's scratch)."""
 
     kernel: str
     k: int
@@ -135,19 +154,32 @@ def scratch_bytes(nc: int, elem: int) -> int:
 
 
 def needs_cluster(nc: int, nv: int, ne: int, precision: str = "f64") -> bool:
-    """Whether a solve of this size takes the cluster kernel: its lanes do
-    not fit one block's shared memory."""
+    """Whether a solve of this size takes the cluster kernel: at f64 its
+    operands do not all fit one block's shared memory staged, at f32 its
+    lanes do not fit it."""
+    if precision == "f64":
+        return not takes_shared(nc, nv, ne)
     return smem_bytes(nc, nv, ne, _ELEM[precision]) > SMEM_LIMIT
+
+
+def takes_shared(nc: int, nv: int, ne: int, precision: str = "f64") -> bool:
+    """Whether a solve of this size takes the staged one-block kernel: f64,
+    and every operand fits one block's shared memory."""
+    return precision == "f64" and shared_smem_bytes(nc, nv, ne) <= SMEM_LIMIT
 
 
 def launch_plan(nc: int, nv: int, ne: int,
                 precision: str = "f64") -> LaunchPlan:
-    """What the sim launches for a solve of this size: one block where the
-    lanes fit its shared memory, else ``cluster_plan``'s cluster."""
-    if not needs_cluster(nc, nv, ne, precision):
-        return LaunchPlan(f"waterfill_{precision}", 1,
-                          smem_bytes(nc, nv, ne, _ELEM[precision]), True)
-    return cluster_plan(nc, nv, ne, precision)
+    """What the sim launches for a solve of this size: one block (at f64
+    the staged kernel) where ``needs_cluster`` says it fits, else
+    ``cluster_plan``'s cluster."""
+    if needs_cluster(nc, nv, ne, precision):
+        return cluster_plan(nc, nv, ne, precision)
+    if precision == "f64":
+        return LaunchPlan("waterfill_f64_shared", 1,
+                          shared_smem_bytes(nc, nv, ne), True)
+    return LaunchPlan(f"waterfill_{precision}", 1,
+                      smem_bytes(nc, nv, ne, _ELEM[precision]), True)
 
 
 class Segments(NamedTuple):
@@ -221,11 +253,12 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     (rates of the caps' dtype) returns ``prev`` when the flag is False;
     on the card the kernel reads the flag itself, so nothing syncs.
 
-    ``lanes`` (uint8, at least ``scratch_bytes(nc, elem)``, on the caps'
-    device) runs the cluster kernel: one cluster of ``cluster_plan``'s K
-    blocks, the lanes in their shared memory, or in ``lanes`` past the
-    largest cluster's, so any lane count solves; without it a solve past
-    one block's shared memory raises. ``clocks`` (int64 [128], zeroed, on
+    Without ``lanes`` a solve runs on one block (at f64 the staged
+    kernel), and one that ``needs_cluster`` raises. ``lanes`` (uint8, at
+    least ``scratch_bytes(nc, elem)``, on the caps' device) runs the
+    cluster kernel: one cluster of ``cluster_plan``'s K blocks, the lanes
+    in their shared memory, or in ``lanes`` past the largest cluster's,
+    so any lane count solves. ``clocks`` (int64 [128], zeroed, on
     the card) receives the cluster kernel's cycles per pass (the layout of
     ``csrc/waterfill.cu``'s ``Clock``). The CPU's plain version ignores
     both.
@@ -297,8 +330,7 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
             _check(clocks, "clocks", torch.int64, 128, dev)
     elif clocks is not None:
         raise ValueError("clocks go with the cluster kernel (lanes)")
-    elif lib.waterfill_smem_bytes(nc, nv, ne, elem) > lib.waterfill_smem_limit(
-            elem):
+    elif needs_cluster(nc, nv, ne, precision):
         raise ValueError(
             f"{nc} connections, {nv} VMs and {ne} edges do not fit one "
             "block's shared memory"
@@ -313,10 +345,13 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
         return None if t is None else t.data_ptr()
 
     name = f"waterfill_{precision}"
+    staged = lanes is None and precision == "f64"
     if lanes is not None:
         name, scratch, clk = f"{name}_cluster", (ptr(lanes),), (ptr(clocks),)
     else:
         scratch = clk = ()
+    if staged:
+        name = f"{name}_shared"
     rc = getattr(lib, name)(
         ptr(caps), ptr(src), ptr(dst), ptr(eid), ptr(eg_cap), ptr(in_cap),
         ptr(ed_cap), ptr(active), ptr(changed), ptr(prev),
@@ -327,6 +362,8 @@ def waterfill_rates(caps, src, dst, eg_cap, in_cap, eid=None, ed_cap=None,
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     _count((_launches if lanes is None else _cluster_launches)[precision])
+    if staged:
+        _count(_shared_launches)
     return out
 
 

@@ -606,9 +606,9 @@ def _segment(st: _St, cn: _Cn, sc: _Sc, block: int,
 # ------------------------------------------------------------------ host side
 def _wf_lanes(ncp: int, nv: int, ne: int, solver: str, dev):
     """The lane scratch that sends every solve of this scenario to the
-    water-filling cluster kernel, where its lanes do not fit one block's
-    shared memory; None where they do. The CPU's plain solver ignores
-    it."""
+    water-filling cluster kernel, where one block's shared memory does not
+    take it (``needs_cluster``); None where it does. The CPU's plain
+    solver ignores it."""
     if not wf.needs_cluster(ncp, nv, ne, solver):
         return None
     n = wf.scratch_bytes(ncp, 8 if solver == "f64" else 4)

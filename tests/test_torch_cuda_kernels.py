@@ -139,40 +139,57 @@ def _limit_args(nv, ne):
     return args
 
 
-def _solves_bitwise(a):
-    got = wf_ops.waterfill_rates(**a).cpu()
+def _solves_bitwise(a, lanes=None):
+    got = wf_ops.waterfill_rates(**a, lanes=lanes).cpu()
     want = wf_ops.waterfill_rates(**{k: t.cpu() for k, t in a.items()})
     assert torch.equal(got, want)
 
 
+def _lanes_for(nc, nv, ne):
+    """The lane scratch that the size rule asks of an f64 solve of this
+    size (the cluster kernel's), or None where one block takes it."""
+    if not wf_ops.needs_cluster(nc, nv, ne):
+        return None
+    return torch.empty(wf_ops.scratch_bytes(nc, 8), dtype=torch.uint8,
+                       device="cuda")
+
+
 @pytest.mark.gpu
 def test_waterfill_at_the_shared_memory_limit_and_past_it():
-    """The most lanes one block's shared memory takes solve bitwise equal
-    to the plain version; one lane more raises before any launch."""
+    """The most lanes one block's shared memory takes (the one-block kernel,
+    which takes the f32 solves) solve within 1e-5 of the plain version;
+    one lane more raises before any launch."""
     _need_card()
     from repro_torch.kernels.waterfill.build import load
 
     lib = load()
     nv, ne = 8, 2
-    limit = lib.waterfill_smem_limit(8)
-    lo = _largest(lambda n: lib.waterfill_smem_bytes(n, nv, ne, 8) <= limit)
+    limit = lib.waterfill_smem_limit(4)
+    lo = _largest(lambda n: lib.waterfill_smem_bytes(n, nv, ne, 4) <= limit)
     args = _limit_args(nv, ne)
-    _solves_bitwise(args(lo, "cuda"))
+
+    def f32(a):
+        return {k: t.float() if t.is_floating_point() else t
+                for k, t in a.items()}
+
+    a = f32(args(lo, "cuda"))
+    got = wf_ops.waterfill_rates(**a, precision="f32").cpu()
+    want = wf_ops.waterfill_rates(**{k: t.cpu() for k, t in a.items()},
+                                  precision="f32")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="shared memory"):
-        wf_ops.waterfill_rates(**args(lo + 1, "cuda"))
+        wf_ops.waterfill_rates(**f32(args(lo + 1, "cuda")), precision="f32")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nv,ne", [(8, 2), (20, 1), (64, 16)])
 def test_waterfill_takes_the_solves_an_all_shared_layout_took(nv, ne):
-    """The kernel takes every f64 solve that a layout of 25 bytes a lane
-    (cap, rate, share, state) and 16 bytes a segment (budget, share) took,
-    beside 192 bytes of static scratch in 227 KB, and solves the largest
-    bitwise."""
+    """Every f64 solve that a layout of 25 bytes a lane (cap, rate, share,
+    state) and 16 bytes a segment (budget, share) took in one block,
+    beside 192 bytes of static scratch in 227 KB, still solves: the
+    largest takes the staged kernel or a cluster of two blocks that holds
+    its lanes in shared memory, and solves bitwise."""
     _need_card()
-    from repro_torch.kernels.waterfill.build import load
-
-    lib = load()
     nseg = 2 * nv + ne
 
     def earlier_fits(n):
@@ -180,28 +197,39 @@ def test_waterfill_takes_the_solves_an_all_shared_layout_took(nv, ne):
         return ((b + 15) & ~15) <= 232448 - 192
 
     n = _largest(earlier_fits)
-    assert lib.waterfill_smem_bytes(n, nv, ne, 8) <= lib.waterfill_smem_limit(8)
-    _solves_bitwise(_limit_args(nv, ne)(n, "cuda"))
+    plan = wf_ops.launch_plan(n, nv, ne)
+    assert plan.k <= 2 and plan.lanes_shared
+    _solves_bitwise(_limit_args(nv, ne)(n, "cuda"), _lanes_for(n, nv, ne))
 
 
 @pytest.mark.gpu
 def test_waterfill_size_mirror_equals_the_library():
-    """``ops.smem_bytes``, ``ops.cluster_smem_bytes``, ``ops.cluster_plan``,
-    ``ops.scratch_bytes`` and ``ops.SMEM_LIMIT``, which the sim uses to pick
-    a kernel without loading the library, are the library's own numbers,
-    and this card holds the largest cluster the mirror assumes."""
+    """``ops.smem_bytes``, ``ops.shared_smem_bytes``,
+    ``ops.cluster_smem_bytes``, ``ops.cluster_plan``, ``ops.scratch_bytes``
+    and ``ops.SMEM_LIMIT``, which the sim uses to pick a kernel without
+    loading the library, are the library's own numbers (the staged
+    kernel's capacity too), and this card holds the largest cluster the
+    mirror assumes."""
     _need_card()
     from repro_torch.kernels.waterfill.build import load
 
     lib = load()
     assert lib.waterfill_cluster_max() == wf_ops.MAX_CLUSTER
+    for nv, ne in ((12, 36), (20, 1), (8, 2)):
+        limit = lib.waterfill_smem_limit(8)
+        assert _largest(lambda n: lib.waterfill_shared_smem_bytes(n, nv, ne)
+                        <= limit) == _largest(
+            lambda n: wf_ops.takes_shared(n, nv, ne))
     for elem, p in ((8, "f64"), (4, "f32")):
         assert lib.waterfill_smem_limit(elem) == wf_ops.SMEM_LIMIT
         for nc, nv, ne in ((0, 8, 2), (1, 1, 0), (600, 20, 1),
-                           (12_345, 64, 16), (24_576, 768, 3),
-                           (262_144, 64, 16), (600_000, 3_000, 40)):
+                           (640, 12, 36), (12_345, 64, 16),
+                           (24_576, 768, 3), (262_144, 64, 16),
+                           (600_000, 3_000, 40)):
             assert (wf_ops.smem_bytes(nc, nv, ne, elem)
                     == lib.waterfill_smem_bytes(nc, nv, ne, elem))
+            assert (wf_ops.shared_smem_bytes(nc, nv, ne)
+                    == lib.waterfill_shared_smem_bytes(nc, nv, ne))
             assert (wf_ops.scratch_bytes(nc, elem)
                     == lib.waterfill_scratch_bytes(nc, elem))
             for k in (2, 4, 8, 16):
@@ -219,9 +247,10 @@ def test_waterfill_size_mirror_equals_the_library():
 @pytest.mark.gpu
 @pytest.mark.parametrize("nv,ne", [(8, 2), (64, 16)])
 def test_device_memory_variant_bitwise_at_twice_the_limit(nv, ne):
-    """Twice the lanes one block's shared memory takes: the shared entry
-    raises, the cluster kernel solves them bitwise equal to the plain f64
-    version (f32 within its tolerance) and counts on its own counter."""
+    """Twice the lanes the one-block layout takes at f64 (``smem_bytes``):
+    without the lane scratch the call raises, the cluster kernel solves
+    them bitwise equal to the plain f64 version (f32 within its
+    tolerance) and counts on its own counter."""
     _need_card()
     from repro_torch.kernels.waterfill.build import load
 
@@ -382,6 +411,159 @@ def test_cluster_kernel_without_scratch_or_past_the_segments_raises():
     with pytest.raises(ValueError, match="shared memory"):
         wf_ops.waterfill_rates(**b, lanes=lanes)
     assert (count.value, shared.value) == (n0, s0)
+
+
+STAGED_CASES = ("bcast_151", "bcast_338", "bcast_422", "one_edge_600",
+                "direct_128", "no_active_lane", "n_edges_bound", "changed")
+
+
+def _staged_args(name):
+    """A solve the staged one-block kernel takes, on the CPU. ``bcast_<n>``:
+    the broadcast's shape (640 lanes, 12 VMs, 36 edges; egress and ingress
+    lists of 9 to 100 lanes) with ``n`` lanes active, as its solves have
+    151 to 422; ``one_edge_600``: the Fig. 6 sim's 600 lanes, 20 VMs and one
+    edge that holds every lane; ``direct_128``: 2 VMs a region, 128 lanes
+    on one edge; ``no_active_lane``; ``n_edges_bound``: edge budgets of
+    1e30 with the bound's edge term overridden to 0, as the sim passes
+    without link contention; ``changed``: the broadcast's shape at 338."""
+    rng = np.random.default_rng(30)
+    if name == "one_edge_600":
+        nc, nv, ne, n_active = 600, 20, 1, 600
+    elif name == "direct_128":
+        nc, nv, ne, n_active = 128, 4, 1, 128
+    else:
+        nc, nv, ne = 640, 12, 36
+        n_active = {"no_active_lane": 0}.get(
+            name, int(name.split("_")[1]) if name.startswith("bcast")
+            else 338)
+    if name == "direct_128":
+        src = np.arange(nc) // 64
+        dst = 2 + np.arange(nc) % 2
+    else:
+        skew = np.arange(1, nv + 1) / np.arange(1, nv + 1).sum()
+        src = rng.choice(nv, nc, p=skew)
+        dst = rng.choice(nv, nc, p=skew[::-1])
+    active = np.zeros(nc, dtype=bool)
+    active[rng.choice(nc, n_active, replace=False)] = True
+    ed = rng.uniform(20, 200, ne) if ne > 1 else rng.uniform(1000, 2000, 1)
+    if name == "n_edges_bound":
+        ed = np.full(ne, 1e30)
+    return dict(
+        caps=torch.tensor(rng.uniform(0.5, 8.0, nc), dtype=torch.float64),
+        src=torch.tensor(src, dtype=torch.int32),
+        dst=torch.tensor(dst, dtype=torch.int32),
+        eg_cap=torch.tensor(rng.uniform(30, 400, nv), dtype=torch.float64),
+        in_cap=torch.tensor(rng.uniform(30, 400, nv), dtype=torch.float64),
+        eid=torch.tensor(rng.integers(0, ne, nc), dtype=torch.int32),
+        ed_cap=torch.tensor(ed, dtype=torch.float64),
+        active=torch.tensor(active),
+    )
+
+
+_F64 = ("kernels.waterfill_f64.launches",
+        "kernels.waterfill_f64_shared.launches")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", STAGED_CASES)
+def test_staged_kernel_bitwise_on_its_shapes(name):
+    """The staged one-block kernel, which the size rule gives these solves,
+    bitwise equal to the plain f64 version at the broadcast's shape with
+    151, 338 and 422 active lanes, at the Fig. 6 sim's shape (one list
+    holds every lane), at the direct cell's 128 lanes, with no active lane,
+    with the round bound's edge term overridden, and with ``changed``
+    (False returns ``prev``, True solves). Each launch counts once on
+    ``kernels.waterfill_f64.launches`` and once on
+    ``kernels.waterfill_f64_shared.launches``."""
+    _need_card()
+    a = _staged_args(name)
+    nc, nv, ne = (a["caps"].shape[0], a["eg_cap"].shape[0],
+                  a["ed_cap"].shape[0])
+    assert wf_ops.launch_plan(nc, nv, ne).kernel == "waterfill_f64_shared"
+    kw = {"n_edges_bound": 0} if name == "n_edges_bound" else {}
+    want = wf_ops.waterfill_rates(**a, **kw)
+    g = {k: t.cuda() for k, t in a.items()}
+    before = [REGISTRY.counter(n).value for n in _F64]
+    if name == "changed":
+        prev = torch.full((nc,), 3.25, dtype=torch.float64, device="cuda")
+        kept = wf_ops.waterfill_rates(
+            **g, changed=torch.tensor(False, device="cuda"), prev=prev)
+        assert torch.equal(kept.cpu(), prev.cpu())
+        got = wf_ops.waterfill_rates(
+            **g, changed=torch.tensor(True, device="cuda"), prev=prev)
+        n = 2
+    else:
+        got = wf_ops.waterfill_rates(**g, **kw)
+        n = 1
+    assert [REGISTRY.counter(c).value - b
+            for c, b in zip(_F64, before)] == [n, n]
+    assert torch.equal(got.cpu(), want)
+    if name == "no_active_lane":
+        assert not want.any()
+
+
+@pytest.mark.gpu
+def test_staged_kernel_at_its_limit_and_one_lane_past_it():
+    """The most lanes the staged layout takes (12 VMs, 36 edges) solve on
+    it (both f64 counters count); one lane more raises without the lane
+    scratch and solves on a cluster of two with it (only the cluster's
+    counter counts); both bitwise equal to the plain version."""
+    _need_card()
+    from repro_torch.kernels.waterfill.build import load
+
+    lib = load()
+    nv, ne = 12, 36
+    limit = lib.waterfill_smem_limit(8)
+    lo = _largest(lambda n: lib.waterfill_shared_smem_bytes(n, nv, ne)
+                  <= limit)
+    args = _limit_args(nv, ne)
+    with pytest.raises(ValueError, match="shared memory"):
+        wf_ops.waterfill_rates(**args(lo + 1, "cuda"))
+    names = (*_F64, "kernels.waterfill_f64_cluster.launches")
+    for nc, counted in ((lo, [1, 1, 0]), (lo + 1, [0, 0, 1])):
+        assert wf_ops.takes_shared(nc, nv, ne) == (nc == lo)
+        before = [REGISTRY.counter(n).value for n in names]
+        _solves_bitwise(args(nc, "cuda"), _lanes_for(nc, nv, ne))
+        assert [REGISTRY.counter(c).value - b
+                for c, b in zip(names, before)] == counted
+
+
+@pytest.mark.gpu
+def test_staged_kernel_counts_on_both_counters_captured_and_replayed(
+        port_top):
+    """Under stream capture the staged kernel records on the
+    ``.recorded`` counters of both ``waterfill_f64`` and
+    ``waterfill_f64_shared`` and launches nothing; a sim's replays add the
+    recorded launches to both ``.launches`` counters, so over a card sim
+    of the direct cell's 128 lanes each equals ``sim.iterations``."""
+    _need_card()
+    a = {k: t.cuda() for k, t in _staged_args("direct_128").items()}
+    segs = wf_ops.build_segments(a["src"], a["dst"], a["eid"],
+                                 a["eg_cap"].shape[0], a["ed_cap"].shape[0])
+    recorded = [n.replace(".launches", ".recorded") for n in _F64]
+    names = (*_F64, *recorded)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the library built and configured
+        wf_ops.waterfill_rates(**a, segments=segs)
+    torch.cuda.current_stream().wait_stream(side)
+    before = {n: REGISTRY.counter(n).value for n in names}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = wf_ops.waterfill_rates(**a, segments=segs)
+    graph.replay()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    assert d == {**{n: 0 for n in _F64}, **{n: 1 for n in recorded}}
+    assert torch.equal(got.cpu(), wf_ops.waterfill_rates(
+        **{k: t.cpu() for k, t in a.items()}))
+
+    names = ("sim.iterations", "sim.graph_replays", *_F64)
+    before = {n: REGISTRY.counter(n).value for n in names}
+    _sim(_direct_2vm(port_top, 300), [], {"block": 8}, None)
+    torch.cuda.synchronize()
+    d = {n: REGISTRY.counter(n).value - before[n] for n in names}
+    assert d["sim.graph_replays"] >= 1
+    assert d[_F64[0]] == d[_F64[1]] == d["sim.iterations"]
 
 
 @pytest.fixture(scope="module")

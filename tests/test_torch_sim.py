@@ -330,11 +330,15 @@ def test_state_keeps_its_storage_for_the_whole_run(name, port_top,
 def test_sim_sends_solves_past_shared_memory_to_the_device_memory_variant(
         n_jobs, solver, fit, port_top):
     """The sim decides once, when it builds its state, which water-filling
-    kernel its solves take: where the scenario's lanes do not fit one
-    block's shared memory (by ``ops.smem_bytes``, the mirror of the
-    library's size rule), it allocates the lane scratch of
+    kernel its solves take, by ``ops.needs_cluster`` (the mirror of the
+    library's size rule): one block where an f64 solve's operands all fit
+    its shared memory staged (the staged kernel: 4 jobs, 2,048 lanes) or
+    an f32 solve's lanes fit it (``ops.smem_bytes``, which ``fit``
+    gives); otherwise it allocates the lane scratch of
     ``ops.scratch_bytes`` that sends them to the cluster kernel, whose
-    cluster then holds the lanes in its shared memory; otherwise none."""
+    cluster then holds the lanes in its shared memory. 22 f64 jobs
+    (11,264 lanes) fit the one-block layout but not the staged one, and
+    take the cluster: f64 has no other one-block kernel."""
     from repro_torch.kernels.waterfill import ops as wf
     from repro_torch.transfer.events import materialize_jobs
     from repro_torch.transfer.simconfig import resolve
@@ -344,10 +348,13 @@ def test_sim_sends_solves_past_shared_memory_to_the_device_memory_variant(
     elem = 8 if solver == "f64" else 4
     fits = wf.smem_bytes(sc.ncp, sc.nv, sc.ne, elem) <= wf.SMEM_LIMIT
     assert fits == fit
+    staged = wf.takes_shared(sc.ncp, sc.nv, sc.ne, solver)
+    assert staged == (n_jobs == 4 and solver == "f64")
     plan = wf.launch_plan(sc.ncp, sc.nv, sc.ne, solver)
-    if fits:
+    if staged or (fits and solver == "f32"):
         assert cn.wf_lanes is None
-        assert plan.kernel == f"waterfill_{solver}" and plan.k == 1
+        assert plan.kernel == ("waterfill_f64_shared" if staged
+                               else "waterfill_f32") and plan.k == 1
     else:
         assert cn.wf_lanes.dtype == torch.uint8
         assert cn.wf_lanes.numel() == wf.scratch_bytes(sc.ncp, elem)

@@ -191,7 +191,12 @@ def test_no_kernel_and_no_fallback_off_cpu_and_cuda():
 
 # (label, nc, nv, ne, precision, kernel, K, bytes a block, lanes shared):
 # the block counts transcribed by hand from csrc/waterfill.cu's layouts
-# (one block: 12 warps' minima and runs of 256 + 8, cap and rate per lane,
+# (the staged block, f64: 24 warps' runs of 128 + 8, the round's least
+# share, cap and rate per lane, a rate per list position (three lists of
+# nc rounded up to 32) + 8, budget and share per segment; 5 + 3 * nseg
+# ints and two bit words per 32 list positions; six 16-bit ids and
+# positions and a state byte per lane; the f32 block: 12 warps' minima and
+# runs of 256 + 8, cap and rate per lane,
 # budget and share per segment, 13 + nseg ints, a state byte per lane; a
 # cluster block: 64 bytes of ring mbarriers (4 full, 4 empty), 16 warps'
 # minima and runs of 128 + 8, the block's minimum, the share replica, owned
@@ -199,17 +204,29 @@ def test_no_kernel_and_no_fallback_off_cpu_and_cuda():
 # per owned segment, a state byte per own lane; each rounded up to 16
 # bytes)
 SIZE_CASES = [
-    ("fig6_sim", 600, 20, 1, "f64", "waterfill_f64", 1, 36_512, True),
+    ("fig6_sim", 600, 20, 1, "f64", "waterfill_f64_shared", 1, 59_808,
+     True),
     ("fleet", 24_576, 768, 3, "f64", "waterfill_f64_cluster", 4, 161_904,
      True),
     ("fleet_f32", 24_576, 768, 3, "f32", "waterfill_f32_cluster", 2,
      152_512, True),
-    ("at_the_one_block_limit", 12_152, 8, 2, "f64", "waterfill_f64", 1,
+    ("at_the_one_block_limit", 24_384, 8, 2, "f32", "waterfill_f32", 1,
      232_448, True),
-    ("one_lane_past_it", 12_153, 8, 2, "f64", "waterfill_f64_cluster", 2,
-     138_080, True),
+    ("one_lane_past_it", 24_385, 8, 2, "f32", "waterfill_f32_cluster", 2,
+     127_312, True),
     ("past_a_16_block_cluster", 262_144, 64, 16, "f64",
      "waterfill_f64_cluster", 16, 35_776, False),
+    ("bcast_sim", 640, 12, 36, "f64", "waterfill_f64_shared", 1, 62_288,
+     True),
+    ("fig6_sim_f32", 600, 20, 1, "f32", "waterfill_f32", 1, 18_672, True),
+    ("at_the_staged_limit", 3_804, 12, 36, "f64", "waterfill_f64_shared", 1,
+     232_448, True),
+    ("one_lane_past_the_staged_limit", 3_805, 12, 36, "f64",
+     "waterfill_f64_cluster", 2, 68_048, True),
+    ("f64_where_one_block_held_it", 12_152, 8, 2, "f64",
+     "waterfill_f64_cluster", 2, 138_064, True),
+    ("direct_fleet_of_22_jobs", 11_264, 352, 3, "f64",
+     "waterfill_f64_cluster", 2, 145_680, True),
 ]
 
 
@@ -218,13 +235,21 @@ def test_size_mirror_picks_the_kernel_its_blocks_and_their_bytes(case):
     """The Python mirror of the library's size rule (which a card test holds
     equal to the library's own functions): which kernel a solve takes,
     the cluster's K and each block's shared memory, at the Fig. 6 sim's
-    shape, the fleet's 24,576 lanes (768 VMs, 3 edges), exactly at the one
-    block's limit and one lane past it, and past what a 16-block cluster
-    holds (lanes in device memory)."""
+    shape (f64 on the staged kernel, f32 on the one-block one), the
+    broadcast's (640 lanes, 12 VMs, 36 edges), exactly at the staged
+    kernel's limit and one lane past it (a cluster of 2: f64 has no other
+    one-block kernel), the fleet's 24,576 lanes (768 VMs, 3 edges),
+    exactly at the f32 one block's limit and one lane past it, the f64
+    solves that one block held before the staged kernel (up to 12,152
+    lanes at 8 VMs and 2 edges; 22 direct jobs of 8 VMs), which a cluster
+    of 2 solves faster, and past what a 16-block cluster holds (lanes in
+    device memory)."""
     _, nc, nv, ne, precision, kernel, k, nbytes, shared = case
     plan = ops.launch_plan(nc, nv, ne, precision)
     assert plan == (kernel, k, nbytes, shared)
     assert ops.needs_cluster(nc, nv, ne, precision) == (k > 1)
+    assert ops.takes_shared(nc, nv, ne, precision) == (
+        kernel == "waterfill_f64_shared")
     assert nbytes <= ops.SMEM_LIMIT
     if k > 1:
         assert ops.cluster_plan(nc, nv, ne, precision) == plan
